@@ -1,0 +1,349 @@
+"""Config dataclasses of the model, mirrored field for field.
+
+These mirror ``presight_tpu``'s dataclasses (same names, fields and
+defaults) instead of importing them, because importing them from the JAX
+package pulls in jax, which the GPU machine does not have:
+
+  * NerfactoNuscMSConfig  <- presight_tpu/models/nerfacto_ms.py:58-194
+  * INGPFieldConfig       <- presight_tpu/fields/ingp_field.py:37-74
+  * PropFieldConfig       <- presight_tpu/fields/prop_field.py:25-54
+  * SkyFieldConfig        <- presight_tpu/fields/sky_field.py:22-28
+  * HashEncodingConfig    <- presight_tpu/ops/hash_encoding.py:66-132
+  * SpacingSpec           <- presight_tpu/ops/samplers.py:29-53
+
+``tile_model_config`` builds a named tile's model config the way
+presight_tpu/configs/method_configs.py builds it (``_base_model``,
+``_tile_config``, ``_tpu_profile``). A parity test holds both against each
+other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HashEncodingConfig:
+    num_levels: int = 16
+    min_res: int = 16
+    max_res: int = 1024
+    log2_hashmap_size: int = 19
+    features_per_level: int = 2
+    hash_init_scale: float = 1e-4
+    storage: str = "corner"
+
+    @property
+    def table_size(self) -> int:
+        return 2 ** self.log2_hashmap_size
+
+    @property
+    def out_dim(self) -> int:
+        return self.num_levels * self.features_per_level
+
+    @property
+    def row_features(self) -> int:
+        return self.features_per_level * (
+            8 if self.storage in ("cell", "shared") else 1
+        )
+
+    def scalings(self) -> np.ndarray:
+        """Per-level grid resolutions; the power runs in float32, as the
+        executed reference does (f64 shifts boundary levels)."""
+        levels = np.arange(self.num_levels).astype(np.float32)
+        if self.num_levels > 1:
+            growth = np.exp(
+                (np.log(self.max_res) - np.log(self.min_res)) / (self.num_levels - 1)
+            )
+        else:
+            growth = 1.0
+        return np.floor(
+            (np.float32(self.min_res) * np.float32(growth) ** levels).astype(np.float32)
+        ).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class INGPFieldConfig:
+    num_levels: int = 10
+    base_res: int = 16
+    max_res: int = 16384
+    log2_hashmap_size: int = 20
+    features_per_level: int = 4
+    num_layers: int = 2
+    hidden_dim: int = 64
+    geo_feat_dim: int = 15
+    num_layers_color: int = 3
+    hidden_dim_color: int = 64
+    appearance_embedding_dim: int = 16
+    use_semantics: bool = True
+    semantic_dim: int = 64
+    hidden_dim_semantic_head: int = 64
+    hash_init_scale: float = 1e-4
+    hash_storage: str = "corner"
+
+    @property
+    def hash(self) -> HashEncodingConfig:
+        return HashEncodingConfig(
+            num_levels=self.num_levels,
+            min_res=self.base_res,
+            max_res=self.max_res,
+            log2_hashmap_size=self.log2_hashmap_size,
+            features_per_level=self.features_per_level,
+            hash_init_scale=self.hash_init_scale,
+            storage=self.hash_storage,
+        )
+
+    @property
+    def sem_dim(self) -> int:
+        return self.semantic_dim if self.use_semantics else 0
+
+    @property
+    def base_out_dim(self) -> int:
+        return 1 + self.geo_feat_dim + self.sem_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class PropFieldConfig:
+    num_levels: int = 8
+    base_res: int = 16
+    max_res: int = 1024
+    log2_hashmap_size: int = 20
+    features_per_level: int = 1
+    num_layers: int = 2
+    hidden_dim: int = 64
+    hash_init_scale: float = 1e-4
+    hash_storage: str = "corner"
+    shared_mlp: bool = False
+
+    @property
+    def hash(self) -> HashEncodingConfig:
+        return HashEncodingConfig(
+            num_levels=self.num_levels,
+            min_res=self.base_res,
+            max_res=self.max_res,
+            log2_hashmap_size=self.log2_hashmap_size,
+            features_per_level=self.features_per_level,
+            hash_init_scale=self.hash_init_scale,
+            storage=self.hash_storage,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SkyFieldConfig:
+    mlp_num_layers: int = 3
+    mlp_layer_width: int = 32
+    appearance_embedding_dim: int = 16
+    use_semantics: bool = True
+    semantic_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SpacingSpec:
+    """Monotone spacing warp s = fn(t), t = fn_inv(s) (piecewise: uniform
+    below ``threshold``, linear in disparity above)."""
+
+    kind: str = "piecewise_threshold"
+    threshold: float = 1.0
+
+    def fn(self, t: torch.Tensor) -> torch.Tensor:
+        if self.kind == "uniform":
+            return t
+        thr = self.threshold
+        return torch.where(t < thr, t / (2.0 * thr),
+                           1.0 - thr / (2.0 * torch.clamp(t, min=1e-12)))
+
+    def fn_inv(self, s: torch.Tensor) -> torch.Tensor:
+        if self.kind == "uniform":
+            return s
+        thr = self.threshold
+        return torch.where(s < 0.5, s * (2.0 * thr),
+                           thr / torch.clamp(2.0 - 2.0 * s, min=1e-12))
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfactoNuscMSConfig:
+    eval_num_rays_per_chunk: int = 1 << 15
+    near_plane: float = 0.1
+    far_plane: float = 1000.0
+    hidden_dim: int = 64
+    hidden_dim_color: int = 64
+    num_levels: int = 10
+    base_res: int = 16
+    max_res: int = 16384
+    log2_hashmap_size: int = 20
+    features_per_level: int = 4
+    num_proposal_samples_per_ray: Tuple[int, ...] = (128, 64)
+    num_nerf_samples_per_ray: int = 64
+    proposal_update_every: int = 5
+    proposal_warmup: int = 1000
+    num_proposal_iterations: int = 2
+    use_same_proposal_network: bool = False
+    proposal_net_args_list: Tuple[Dict, ...] = (
+        dict(features_per_level=1, log2_hashmap_size=20, num_levels=8,
+             base_res=16, max_res=1024),
+        dict(features_per_level=1, log2_hashmap_size=20, num_levels=8,
+             base_res=16, max_res=4096),
+    )
+    piecewise_sampler_threshold: float = 1.0
+    interlevel_loss_mult: float = 1.0
+    enable_z_anti_aliasing: bool = True
+    pulse_width: Tuple[float, ...] = (0.03, 0.003)
+    distortion_loss_mult: float = 0.002
+    use_proposal_weight_anneal: bool = True
+    use_average_appearance_embedding: bool = True
+    proposal_weights_anneal_slope: float = 10.0
+    proposal_weights_anneal_max_num_iters: int = 1000
+    use_single_jitter: bool = True
+    appearance_embed_dim: int = 4
+    video_embed_dim: int = 12
+    use_sky_model: bool = True
+    num_sky_mlp_layers: int = 3
+    sky_mlp_dims: int = 32
+    sky_loss_mult: float = 0.001
+    use_lidar_loss: bool = True
+    expected_depth_loss_mult: float = 1.0
+    lidar_depth_upperbound: float = 75.0
+    line_of_sight_mult: float = 0.1
+    line_of_sight_decay_steps: int = 5000
+    line_of_sight_start_step: int = 1000
+    line_of_sight_end_step: int = 30000
+    line_of_sight_max_sigma: float = 5.0
+    line_of_sight_min_sigma: float = 2.0
+    use_semantics: bool = True
+    semantic_dim: int = 64
+    semantic_loss_mult: float = 0.5
+    use_monodepth_loss: bool = False
+    monodepth_loss_inverse: bool = False
+    monodepth_depth_upperbound: float = 40.0
+    pose_scale_factor: float = 1.0
+    prop_shared_mlp: bool = False
+    prop_grid_res: int = 0
+    prop_grid_update_every: int = 128
+    prop_grid_warmup_steps: int = 1024
+    prop_grid_warmup_every: int = 16
+    compute_dtype: str = "float32"
+    hash_storage: str = "corner"
+    remat: bool = True
+
+    @property
+    def appearance_dim(self) -> int:
+        return self.appearance_embed_dim + self.video_embed_dim
+
+    @property
+    def field(self) -> INGPFieldConfig:
+        return INGPFieldConfig(
+            num_levels=self.num_levels,
+            base_res=self.base_res,
+            max_res=self.max_res,
+            log2_hashmap_size=self.log2_hashmap_size,
+            features_per_level=self.features_per_level,
+            hidden_dim=self.hidden_dim,
+            hidden_dim_color=self.hidden_dim_color,
+            appearance_embedding_dim=self.appearance_dim,
+            use_semantics=self.use_semantics,
+            semantic_dim=self.semantic_dim,
+            hash_storage=self.hash_storage,
+        )
+
+    @property
+    def use_prop_grid(self) -> bool:
+        return self.prop_grid_res > 0
+
+    def prop(self, i: int) -> PropFieldConfig:
+        args = self.proposal_net_args_list[min(i, len(self.proposal_net_args_list) - 1)]
+        return PropFieldConfig(
+            num_levels=args["num_levels"],
+            base_res=args["base_res"],
+            max_res=args["max_res"],
+            log2_hashmap_size=args["log2_hashmap_size"],
+            features_per_level=args["features_per_level"],
+            hash_storage=self.hash_storage,
+            shared_mlp=self.prop_shared_mlp,
+        )
+
+    @property
+    def sky(self) -> SkyFieldConfig:
+        return SkyFieldConfig(
+            mlp_num_layers=self.num_sky_mlp_layers,
+            mlp_layer_width=self.sky_mlp_dims,
+            appearance_embedding_dim=self.appearance_dim,
+            use_semantics=self.use_semantics,
+            semantic_dim=self.semantic_dim,
+        )
+
+    @property
+    def spacing(self) -> SpacingSpec:
+        return SpacingSpec("piecewise_threshold", threshold=self.piecewise_sampler_threshold)
+
+
+# method_configs.py constants: pose rescale, iterations, tiles (location ->
+# (number of tiles, number of AABB experts)).
+POSE_RESCALE_FACTOR = 0.05
+MAX_ITERATIONS = 100_000
+TILES = {
+    "boston-seaport": (8, 16),
+    "singapore-queenstown": (4, 12),
+    "singapore-onenorth": (4, 16),
+    "singapore-hollandvillage": (2, 8),
+}
+
+
+def tile_model_config(location: str, tile: int, depth: str, tpu: bool = True,
+                      max_iterations: int = MAX_ITERATIONS) -> NerfactoNuscMSConfig:
+    """Model config of ``{location}-{depth}-dino-c{tile}[-tpu]``, built as
+    method_configs.py's _base_model, _tile_config and _tpu_profile build
+    it. The tile selects centroids, not model shapes; its expert count is
+    ``TILES[location][1]``."""
+    num_tiles, _ = TILES[location]
+    if not 0 <= tile < num_tiles:
+        raise ValueError(f"{location} has tiles 0..{num_tiles - 1}, got {tile}")
+    model = NerfactoNuscMSConfig(
+        near_plane=0.1 * POSE_RESCALE_FACTOR,
+        far_plane=1000.0 * POSE_RESCALE_FACTOR,
+        piecewise_sampler_threshold=100.0 * POSE_RESCALE_FACTOR,
+        proposal_weights_anneal_max_num_iters=max_iterations // 10,
+        proposal_warmup=max_iterations // 10,
+        pose_scale_factor=POSE_RESCALE_FACTOR,
+    )
+    if depth == "monodepth":
+        model = dataclasses.replace(
+            model,
+            use_lidar_loss=False,
+            use_monodepth_loss=True,
+            expected_depth_loss_mult=0.1,
+            line_of_sight_mult=0.01,
+            monodepth_depth_upperbound=25.0,
+            line_of_sight_decay_steps=max_iterations,
+            line_of_sight_start_step=max_iterations // 20,
+            line_of_sight_end_step=max_iterations,
+            line_of_sight_max_sigma=6.0,
+            line_of_sight_min_sigma=4.0,
+            distortion_loss_mult=0.01,
+        )
+    elif depth == "camera":
+        model = dataclasses.replace(model, use_lidar_loss=False)
+    else:
+        raise ValueError(f"depth must be 'camera' or 'monodepth', got {depth!r}")
+    if not tpu:
+        return model
+    return dataclasses.replace(
+        model,
+        hash_storage="shared",
+        prop_shared_mlp=True,
+        remat=False,
+        log2_hashmap_size=17,
+        num_levels=4,
+        features_per_level=10,
+        prop_grid_res=64,
+        num_proposal_samples_per_ray=(64, 32),
+        num_nerf_samples_per_ray=48,
+        proposal_net_args_list=(
+            dict(features_per_level=4, log2_hashmap_size=16, num_levels=2,
+                 base_res=16, max_res=1024),
+            dict(features_per_level=4, log2_hashmap_size=16, num_levels=2,
+                 base_res=16, max_res=4096),
+        ),
+    )

@@ -1,0 +1,142 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled by one ``nvcc`` call for sm_90a into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), keyed on a hash of the sources and placed under
+``<repo>/build/kernels/``. The library is built at first use and loaded with
+ctypes; nothing here runs when the module is imported, so machines without
+nvcc (and the CPU tests) import it freely.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+``LAUNCHES`` counts the launches of each kernel, so a run can show that its
+main path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
+           "prop_grid_density_fwd")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
+_ARGTYPES = {
+    # pos, expert, tables (host array), scales (host array), n, L, F,
+    # log2T, storage, expert_stride_rows, out, stream
+    "hash_encode_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P],
+    # h, block_expert, n, rows_per_group, weights (host array), biases (host
+    # array), dims (host array), n_layers, sigmoid, out, stream
+    "mlp_blocks_fwd": [_P, _P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # deltas, density, steps, clip, payload, payload_index, R, S, C,
+    # threshold, weights, acc, depth, expected, composite, stream
+    "volume_render_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _F,
+                          _P, _P, _P, _P, _P, _P],
+    # pos, centroids, aabbs, grid, n, E, G, out, stream
+    "prop_grid_density_fwd": [_P, _P, _P, _P, _I64, _I, _I, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return str(path)
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libpresight_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library unless the library for
+    these exact sources exists. Returns its path; the compiler's report
+    (registers, shared memory, spills) goes to ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def host_ptrs(values) -> ctypes.Array:
+    return (ctypes.c_void_p * len(values))(*values)

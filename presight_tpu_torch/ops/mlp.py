@@ -1,0 +1,178 @@
+"""Small MLPs, single-expert and expert-grouped (presight_tpu/ops/mlp.py).
+
+Weights keep the JAX layout: W (in, out) or stacked (E, in, out), b (out,)
+or (E, out). ``apply_mlp_blocks`` and ``apply_mlp`` are the wrappers of
+kernel K2 (csrc/mlp_blocks.cu): on CUDA tensors they launch the fused
+kernel, on CPU tensors they run the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import List, Optional, Tuple
+
+import torch
+
+from .. import kernels
+
+Params = List[Tuple[torch.Tensor, torch.Tensor]]
+
+GROUP_BLOCK = 512  # rows per expert block of the grouped layout
+_MAX_LAYERS = 4
+_TILE = 64  # rows per CUDA block of K2; must divide the expert block
+
+
+def mlp_layer_dims(in_dim: int, num_layers: int, layer_width: int,
+                   out_dim: int) -> List[Tuple[int, int]]:
+    if num_layers == 1:
+        return [(in_dim, out_dim)]
+    dims = [(in_dim, layer_width)]
+    dims += [(layer_width, layer_width)] * (num_layers - 2)
+    dims += [(layer_width, out_dim)]
+    return dims
+
+
+def init_mlp(generator: torch.Generator, in_dim: int, num_layers: int,
+             layer_width: int, out_dim: int, num_experts: int = 0) -> Params:
+    """torch.nn.Linear's default init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
+    weight and bias; num_experts=0 gives unstacked layers."""
+    params: Params = []
+    for fan_in, fan_out in mlp_layer_dims(in_dim, num_layers, layer_width, out_dim):
+        bound = 1.0 / math.sqrt(fan_in)
+        lead = (num_experts,) if num_experts else ()
+        w = (torch.rand(lead + (fan_in, fan_out), generator=generator) * 2 - 1) * bound
+        b = (torch.rand(lead + (fan_out,), generator=generator) * 2 - 1) * bound
+        params.append((w, b))
+    return params
+
+
+def block_offsets(group_sizes: torch.Tensor, block: int):
+    """Per-expert (padded_sizes, pad_offsets, orig_offsets) of the
+    block-aligned slab layout -- the one definition of the padding rule."""
+    padded_sizes = ((group_sizes + block - 1) // block) * block
+    zero = torch.zeros((1,), dtype=group_sizes.dtype, device=group_sizes.device)
+    pad_offsets = torch.cat([zero, torch.cumsum(padded_sizes, 0)[:-1]])
+    orig_offsets = torch.cat([zero, torch.cumsum(group_sizes, 0)[:-1]])
+    return padded_sizes, pad_offsets, orig_offsets
+
+
+def _blocked_layout(group_sizes: torch.Tensor, n: int, block: int):
+    """Padded block layout of rows sorted by expert. Returns (dest (N,),
+    src (n_pad,), slot_valid (n_pad,), block_expert (n_pad // block,),
+    n_pad): dest maps sorted row -> padded slot, src padded slot -> sorted
+    row (clipped on padding slots, where slot_valid is False)."""
+    e = group_sizes.shape[0]
+    device = group_sizes.device
+    n_pad = (-(-n // block) + e) * block
+    group_sizes = group_sizes.to(torch.int64)
+    padded_sizes, pad_offsets, orig_offsets = block_offsets(group_sizes, block)
+    row_ids = torch.arange(n, device=device)
+    expert_of_row = torch.searchsorted(orig_offsets + group_sizes, row_ids, right=True)
+    expert_of_row = torch.clamp(expert_of_row, max=e - 1)
+    dest = pad_offsets[expert_of_row] + (row_ids - orig_offsets[expert_of_row])
+
+    num_blocks = n_pad // block
+    block_starts = torch.arange(num_blocks, device=device) * block
+    block_expert = torch.searchsorted(pad_offsets + padded_sizes, block_starts, right=True)
+    block_expert = torch.clamp(block_expert, max=e - 1)
+
+    e_slot = torch.repeat_interleave(block_expert, block)
+    slot_off = torch.arange(n_pad, device=device) - pad_offsets[e_slot]
+    src = orig_offsets[e_slot] + slot_off
+    slot_valid = (slot_off >= 0) & (slot_off < group_sizes[e_slot])
+    src = torch.clamp(src, 0, max(n - 1, 0))
+    return (dest.to(torch.int32), src.to(torch.int32), slot_valid,
+            block_expert.to(torch.int32), n_pad)
+
+
+def apply_mlp_blocks_plain(params: Params, h: torch.Tensor,
+                           block_expert: Optional[torch.Tensor],
+                           sigmoid: bool = False) -> torch.Tensor:
+    """Plain version of K2: per-block batched matmuls with each block's
+    expert weights; block_expert None means one expert (unstacked or E=1)."""
+    n_layers = len(params)
+    for i, (w, b) in enumerate(params):
+        if block_expert is None:
+            w2 = w if w.dim() == 2 else w[0]
+            b2 = b if b.dim() == 1 else b[0]
+            h = h @ w2 + b2
+        else:
+            num_blocks = block_expert.shape[0]
+            hb = h.reshape(num_blocks, h.shape[0] // num_blocks, -1)
+            be = block_expert.long()
+            hb = torch.bmm(hb, w[be]) + b[be][:, None, :]
+            h = hb.reshape(h.shape[0], -1)
+        if i < n_layers - 1:
+            h = torch.relu(h)
+    if sigmoid:
+        h = torch.sigmoid(h)
+    return h
+
+
+def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
+                sigmoid: bool) -> torch.Tensor:
+    n = h.shape[0]
+    if not 1 <= len(params) <= _MAX_LAYERS:
+        raise ValueError(f"mlp_blocks_fwd: 1..{_MAX_LAYERS} layers, got {len(params)}")
+    dims = [h.shape[1]]
+    for w, b in params:
+        if w.shape[-2] != dims[-1] or b.shape[-1] != w.shape[-1]:
+            raise ValueError("mlp_blocks_fwd: layer shapes do not chain")
+        dims.append(w.shape[-1])
+    tensors = [h] + [t for wb in params for t in wb]
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError("mlp_blocks_fwd: expected float32 activations and weights")
+    rows_per_group = 0
+    if block_expert is not None:
+        if block_expert.dtype != torch.int32 or n % block_expert.shape[0]:
+            raise ValueError("mlp_blocks_fwd: int32 block_expert must divide the rows")
+        rows_per_group = n // block_expert.shape[0]
+        if rows_per_group % _TILE:
+            raise ValueError(f"mlp_blocks_fwd: expert block {rows_per_group} not a "
+                             f"multiple of {_TILE}")
+        tensors.append(block_expert)
+    kernels.require_cuda("mlp_blocks_fwd", *tensors)
+    out = torch.empty((n, dims[-1]), dtype=torch.float32, device=h.device)
+    code = kernels.lib().mlp_blocks_fwd(
+        h.data_ptr(), kernels.ptr(block_expert), n, rows_per_group,
+        kernels.host_ptrs([w.data_ptr() for w, _ in params]),
+        kernels.host_ptrs([b.data_ptr() for _, b in params]),
+        (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid),
+        out.data_ptr(), kernels.stream())
+    kernels.check("mlp_blocks_fwd", code)
+    kernels.LAUNCHES["mlp_blocks_fwd"] += 1
+    return out
+
+
+def apply_mlp_blocks(params: Params, h: torch.Tensor, block_expert: torch.Tensor,
+                     sigmoid: bool = False) -> torch.Tensor:
+    """Wrapper of K2 on an already block-padded batch (n_pad, in) with
+    stacked (E, in, out) weights; the expert block is n_pad / num_blocks."""
+    if h.device.type == "cpu":
+        return apply_mlp_blocks_plain(params, h, block_expert, sigmoid)
+    return _mlp_kernel(params, h, block_expert, sigmoid)
+
+
+def apply_mlp(params: Params, x: torch.Tensor, sigmoid: bool = False) -> torch.Tensor:
+    """Wrapper of K2 for one unstacked MLP: ReLU between layers, optional
+    sigmoid."""
+    if x.device.type == "cpu":
+        return apply_mlp_blocks_plain(params, x, None, sigmoid)
+    return _mlp_kernel([(w.unsqueeze(0), b.unsqueeze(0)) for w, b in params], x, None,
+                       sigmoid)
+
+
+def apply_mlp_grouped(params: Params, x: torch.Tensor, group_sizes: torch.Tensor,
+                      sigmoid: bool = False, block: int = GROUP_BLOCK) -> torch.Tensor:
+    """Expert-grouped MLP over rows sorted by expert: pad into per-expert
+    block-aligned slabs, run K2, gather back."""
+    n = x.shape[0]
+    dest, src, slot_valid, block_expert, _ = _blocked_layout(group_sizes, n, block)
+    h = x[src.long()] * slot_valid[:, None].to(x.dtype)
+    h = apply_mlp_blocks(params, h, block_expert)
+    out = h[dest.long()]
+    if sigmoid:
+        out = torch.sigmoid(out)
+    return out

@@ -1,0 +1,242 @@
+"""Prior extraction: served tile NeRF -> voxelised city-prior pickle
+(presight_tpu/prior/extraction.py).
+
+Per sampled camera: segmentation-masked pixels -> rays -> chunked depth
+render (forward_depth) -> world hit points filtered by depth and height ->
+mean density over the proposal rounds and the main field plus clipped
+semantic features at the hits (point_queries) -> density threshold -> PCA
+colours -> voxel downsample -> hit-quantile filter -> pickle {points f32,
+features f16, colors f32, hits, origin f32} and an ASCII PLY preview.
+
+Chunks are padded to the same power-of-two multiples of 4096 as the JAX
+version, so both see the same batches (the expected depth clips to its
+batch's step range). Items are duck-typed: each needs ``H``, ``W``,
+``seg_path`` and ``load_segmentation()``.
+"""
+
+from __future__ import annotations
+
+import pickle
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data.cameras import CameraParams, generate_rays
+from ..models.nerfacto_ms import NerfactoNuscMS
+from .voxelize import hit_quantile_filter, make_streaming_accumulator
+
+CAMERAS_PER_FRAME = 6
+
+# presight_tpu/data/constants.py: Cityscapes classes and the dynamic classes
+# masked out of the prior.
+CITYSCAPE_CLASSES = [
+    "road", "sidewalk", "building", "wall", "fence", "pole",
+    "traffic light", "traffic sign", "vegetation", "terrain", "sky",
+    "person", "rider", "car", "truck", "bus", "train", "motorcycle",
+    "bicycle",
+]
+DEFAULT_MASK_SEG_CLASSES = (
+    "person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle",
+)
+
+
+def _pad_to(n: int, multiple: int) -> int:
+    """Round n up to a power-of-two multiple of ``multiple``."""
+    units = max(1, -(-n // multiple))
+    return (1 << (units - 1).bit_length()) * multiple
+
+
+def _nearest_resize(arr: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Nearest-exact resize (F.interpolate mode='nearest-exact')."""
+    if arr.shape[0] == h and arr.shape[1] == w:
+        return arr
+    rows = np.clip(np.round((np.arange(h) + 0.5) * arr.shape[0] / h - 0.5), 0,
+                   arr.shape[0] - 1).astype(np.int64)
+    cols = np.clip(np.round((np.arange(w) + 0.5) * arr.shape[1] / w - 0.5), 0,
+                   arr.shape[1] - 1).astype(np.int64)
+    return arr[rows][:, cols]
+
+
+def apply_feature_colormap(features: np.ndarray, dino_to_rgb: Dict) -> np.ndarray:
+    """Features (..., D) -> rgb (..., 3) in [0, 1] by the stored PCA
+    reduction and per-channel min/max."""
+    red = np.asarray(dino_to_rgb["reduction_matrix"], np.float32)
+    rgb_min = np.asarray(dino_to_rgb["rgb_min"], np.float32)
+    rgb_max = np.asarray(dino_to_rgb["rgb_max"], np.float32)
+    mean = np.asarray(dino_to_rgb["mean"], np.float32)
+    img = (features.astype(np.float32) - mean) @ red
+    img = (img - rgb_min) / (rgb_max - rgb_min)
+    return np.clip(img, 0.0, 1.0)
+
+
+@torch.no_grad()
+def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_idx: int,
+                         H: int, W: int, seg_valid: Optional[np.ndarray],
+                         pose_scale_factor: float, chunk: int = 1 << 17,
+                         max_depth: float = 50.0, min_depth: float = 0.5,
+                         depth_type: str = "expected_depth",
+                         prop_grid: Optional[torch.Tensor] = None,
+                         z_bounds=(-3.0, 6.0)):
+    """One camera -> (world points f32, densities f32, features f16), or
+    None when no pixel hits inside the depth and height bounds."""
+    device = cameras.c2w.device
+    if seg_valid is not None:
+        rows, cols = np.nonzero(seg_valid)
+    else:
+        rows, cols = np.nonzero(np.ones((H, W), bool))
+    n = len(rows)
+    if n == 0:
+        return None
+    ray_index = np.stack(
+        [np.full(n, camera_idx, np.int32), rows.astype(np.int32), cols.astype(np.int32)],
+        axis=-1)
+
+    points_list, dens_list, feat_list = [], [], []
+    for s in range(0, n, chunk):
+        idx = ray_index[s:s + chunk]
+        idx_p = np.pad(idx, ((0, _pad_to(len(idx), 4096) - len(idx)), (0, 0)))
+        bundle = generate_rays(cameras, torch.from_numpy(idx_p).to(device))
+        outputs = model.forward_depth(bundle, prop_grid=prop_grid)
+        depth = outputs[depth_type][: len(idx)].cpu().numpy() / pose_scale_factor
+        origins = bundle.origins[: len(idx)].cpu().numpy() / pose_scale_factor
+        dirs = bundle.directions[: len(idx)].cpu().numpy()
+        world = origins + dirs * depth[:, None]
+        sel = ((depth < max_depth) & (depth > min_depth)
+               & (world[:, 2] > z_bounds[0]) & (world[:, 2] < z_bounds[1]))
+        world = world[sel]
+        if len(world) == 0:
+            continue
+        wpad = _pad_to(len(world), 4096) - len(world)
+        world_p = torch.from_numpy(
+            np.pad(world, ((0, wpad), (0, 0))).astype(np.float32)).to(device)
+        dens_t, feats_t = model.point_queries(world_p * pose_scale_factor, prop_grid)
+        points_list.append(world.astype(np.float32))
+        dens_list.append(dens_t[: len(world)].cpu().numpy().astype(np.float32))
+        feat_list.append(feats_t[: len(world)].cpu().numpy().astype(np.float16))
+
+    if not points_list:
+        return None
+    return (np.concatenate(points_list), np.concatenate(dens_list),
+            np.concatenate(feat_list))
+
+
+@torch.no_grad()
+def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
+                   pose_scale_factor: float, origin: np.ndarray, dino_to_rgb: Dict,
+                   output_dir: Path, frame_interval: int = 1,
+                   camera_scaling_factor: float = 1.0, voxel_size: float = 0.4,
+                   max_depth: float = 50.0, min_depth: float = 0.5,
+                   hit_thr_ratio: float = 0.2, depth_type: str = "depth",
+                   use_segmentation_mask: bool = True,
+                   mask_seg_classes=DEFAULT_MASK_SEG_CLASSES,
+                   density_threshold: float = 1.0,
+                   z_bounds=(-3.0, 6.0)) -> Dict[str, np.ndarray]:
+    """Full extraction. Each frame's points are thresholded and spilled to a
+    temporary directory, then folded into the O(voxels) accumulator once
+    the grid origin (min of all points - 1) is known."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    depth_key = {"depth": "depth", "expected_depth": "expected_depth"}[depth_type]
+    config = model.config
+
+    if camera_scaling_factor != 1.0:
+        cameras = CameraParams(
+            c2w=cameras.c2w,
+            fx=cameras.fx * camera_scaling_factor,
+            fy=cameras.fy * camera_scaling_factor,
+            cx=cameras.cx * camera_scaling_factor,
+            cy=cameras.cy * camera_scaling_factor,
+            video_ids=cameras.video_ids,
+        )
+    mask_ids = np.array([CITYSCAPE_CLASSES.index(c) for c in mask_seg_classes], np.uint8)
+
+    num_frames = len(items) // CAMERAS_PER_FRAME + 1
+    camera_indices: List[int] = []
+    for f in range(0, num_frames, frame_interval):
+        camera_indices.extend(
+            range(CAMERAS_PER_FRAME * f, min(CAMERAS_PER_FRAME * (f + 1), len(items))))
+
+    feat_dim = config.semantic_dim
+    prop_grid = model.make_prop_grid()
+    spill_frames: List[Path] = []
+    pts_min: Optional[np.ndarray] = None
+    n_before = n_after = 0
+    with tempfile.TemporaryDirectory(prefix="presight_extract_") as spill_name:
+        spill_dir = Path(spill_name)
+        for ci in camera_indices:
+            item = items[ci]
+            H = int(item.H * camera_scaling_factor)
+            W = int(item.W * camera_scaling_factor)
+            seg_valid = None
+            if use_segmentation_mask and item.seg_path is not None:
+                seg = item.load_segmentation()
+                if camera_scaling_factor != 1.0:
+                    seg = _nearest_resize(seg, H, W)
+                seg_valid = ~np.isin(seg, mask_ids)
+            result = extract_frame_points(
+                model, cameras, ci, H, W, seg_valid, pose_scale_factor,
+                max_depth=max_depth, min_depth=min_depth, depth_type=depth_key,
+                prop_grid=prop_grid, z_bounds=z_bounds)
+            if result is None:
+                continue
+            pts, dens, feats = result
+            n_before += len(dens)
+            sel = dens > density_threshold
+            n_after += int(sel.sum())
+            pts_s, feats_s = pts[sel], feats[sel]
+            if len(pts_s) == 0:
+                continue
+            colors_s = apply_feature_colormap(feats_s.astype(np.float32), dino_to_rgb)
+            fpath = spill_dir / f"frame_{len(spill_frames):06d}.npz"
+            np.savez(fpath, points=pts_s.astype(np.float32), colors=colors_s,
+                     features=feats_s)
+            spill_frames.append(fpath)
+            m = pts_s.astype(np.float32).min(axis=0)
+            pts_min = m if pts_min is None else np.minimum(pts_min, m)
+
+        print(f"num hit points before density thr: {n_before}")
+        print(f"num hit points after density thr: {n_after}")
+        min_bound = (pts_min - np.float32(1.0) if pts_min is not None
+                     else np.zeros(3, np.float32))
+        accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim)
+        for fpath in spill_frames:
+            with np.load(fpath) as z:
+                accum.add(z["points"].astype(np.float64), z["colors"], z["features"])
+        voxels = accum.finalize()
+    print(f"num voxels after downsample to {voxel_size}: {len(voxels['points'])}")
+    voxels = hit_quantile_filter(voxels, hit_thr_ratio)
+    print(f"num voxels after hit thr: {len(voxels['points'])}")
+
+    result = {
+        "points": voxels["points"].astype(np.float32),
+        "features": voxels["features"].astype(np.float16),
+        "colors": voxels["colors"].astype(np.float32),
+        "hits": voxels["hits"],
+        "origin": np.asarray(origin, np.float32),
+    }
+    out_path = output_dir / "extracted_priors.pkl"
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+    print(f"result saved to {out_path}")
+    write_ply(result["points"], result["colors"], output_dir / "priors_for_vis.ply")
+    return result
+
+
+def write_ply(points: np.ndarray, colors: np.ndarray, out_path: Path) -> None:
+    """ASCII PLY preview; the header's 'uint8' type name matches the
+    reference's own file."""
+    c = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
+    with open(out_path, "w") as f:
+        f.write(
+            "ply\nformat ascii 1.0\n"
+            f"element vertex {len(points)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            "property uint8 red\nproperty uint8 green\nproperty uint8 blue\n"
+            "end_header\n"
+        )
+        for i in range(len(points)):
+            f.write(f"{points[i, 0]:.3f} {points[i, 1]:.3f} {points[i, 2]:.3f} "
+                    f"{c[i, 0]} {c[i, 1]} {c[i, 2]}\n")

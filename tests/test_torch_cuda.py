@@ -1,0 +1,158 @@
+"""The port's CUDA kernels on the card (marker ``cuda``; each test skips
+without a CUDA device). This file imports no jax, so it runs on the GPU
+machine, which has none:
+
+    python3 -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5; K2 atol 1e-5 +
+rtol 1e-4; K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
+rtol 1e-5. Sums are taken in other orders than the plain versions'; expert
+routing is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from presight_tpu_torch import kernels
+from presight_tpu_torch.configs import HashEncodingConfig, NerfactoNuscMSConfig
+from presight_tpu_torch.data.cameras import CameraParams
+from presight_tpu_torch.engine.evaluator import ImageRenderer
+from presight_tpu_torch.fields import prop_field as PF
+from presight_tpu_torch.fields.router import build_padded_routing
+from presight_tpu_torch.models.nerfacto_ms import init_model
+from presight_tpu_torch.ops import hash_encoding as HE
+from presight_tpu_torch.ops import mlp as M
+from presight_tpu_torch.ops import renderers as VR
+
+pytestmark = pytest.mark.cuda
+
+SMALL = dict(
+    near_plane=0.005, far_plane=50.0, piecewise_sampler_threshold=5.0, num_levels=2,
+    base_res=4, max_res=64, log2_hashmap_size=10, features_per_level=4, hidden_dim=32,
+    hidden_dim_color=32, num_proposal_samples_per_ray=(16, 12), num_nerf_samples_per_ray=8,
+    proposal_net_args_list=(dict(features_per_level=2, log2_hashmap_size=8, num_levels=2,
+                                 base_res=4, max_res=32),) * 2,
+    sky_mlp_dims=16, semantic_dim=64, pose_scale_factor=0.05, hash_storage="shared",
+    prop_shared_mlp=True, prop_grid_res=8, remat=False, eval_num_rays_per_chunk=256,
+)
+
+
+@pytest.fixture
+def cuda_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = NerfactoNuscMSConfig(**SMALL)
+    cent = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.0]], np.float32)
+    aabbs = np.stack([np.stack([c - 1.5, c + 1.5]) for c in cent]).astype(np.float32)
+    model = init_model(torch.Generator().manual_seed(0), cfg, aabbs, cent, 4, 2)
+    params = model.params()
+    for table in params["field"]["hash_table"] + params["props"][0]["hash_table"]:
+        table.data.mul_(3e3)  # well above the 1e-4 init, so densities vary
+    return model
+
+
+def test_kernels_match_plain_versions(cuda_model):
+    model = cuda_model.cuda()
+    p, cfg = model.params(), model.config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernels.reset_launches()
+    routing = build_padded_routing(
+        torch.randint(0, 2, (900,), generator=gen, device=dev, dtype=torch.int32), 2, 512)
+    pos = torch.rand((routing.to_slot.shape[0], 3), generator=gen, device=dev)
+    for storage_args in ((p["field"]["hash_table"], pos, cfg.field.hash, routing.expert_of_slot),
+                         (p["field"]["hash_table"], pos, cfg.field.hash, None)):
+        torch.testing.assert_close(HE.hash_encode(*storage_args),
+                                   HE.hash_encode_plain(*storage_args), rtol=1e-5, atol=1e-7)
+    for layers, sig in ((p["field"]["base_mlp"], False), (p["field"]["semantic_head"], False)):
+        h = torch.randn((routing.to_slot.shape[0], layers[0][0].shape[1]), generator=gen,
+                        device=dev)
+        torch.testing.assert_close(M.apply_mlp_blocks(layers, h, routing.block_expert, sig),
+                                   M.apply_mlp_blocks_plain(layers, h, routing.block_expert, sig),
+                                   rtol=1e-4, atol=1e-5)
+    prop_mlp = p["props"][0]["mlp"]
+    x = torch.randn((1000, prop_mlp[0][0].shape[0]), generator=gen, device=dev)
+    torch.testing.assert_close(M.apply_mlp(prop_mlp, x),
+                               M.apply_mlp_blocks_plain(prop_mlp, x, None),
+                               rtol=1e-4, atol=1e-5)
+    deltas = torch.rand((70, 40), generator=gen, device=dev) * 0.1
+    dens = torch.rand((70, 40), generator=gen, device=dev) * 5
+    steps = torch.cumsum(deltas, -1)
+    payload = torch.rand((70 * 40, 5), generator=gen, device=dev)
+    got = VR.volume_render(deltas, dens, steps, payload)
+    want = VR.volume_render_plain(deltas, dens, steps, payload)
+    for key in ("weights", "accumulation", "expected_depth", "composite"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+    grid = model.make_prop_grid()
+    gpos = torch.randn((1000, 3), generator=gen, device=dev) * 2
+    kargs = (grid, p["props"][0]["centroids"], p["props"][0]["aabbs"], gpos, cfg.prop_grid_res)
+    torch.testing.assert_close(PF.prop_grid_density(*kargs), PF.prop_grid_density_plain(*kargs),
+                               rtol=1e-5, atol=1e-6)
+    assert all(kernels.LAUNCHES[name] > 0 for name in kernels.KERNELS)
+
+
+@pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
+@pytest.mark.parametrize("storage", ["corner", "cell", "shared"])
+def test_hash_encode_kernel_matches_plain(storage, with_experts):
+    """K1 on every table layout, with and without expert ids, at random
+    points and at grid nodes of every level (where ceil == floor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = HashEncodingConfig(num_levels=3, min_res=4, max_res=64, log2_hashmap_size=8,
+                             features_per_level=2, storage=storage)
+    num_experts = 3 if with_experts else 1
+    table = HE.init_hash_table(torch.Generator().manual_seed(0), cfg, num_experts)
+    # Scale the tables up so the tolerance is not all atol.
+    table = ([t.cuda() * 1e4 for t in table] if storage == "shared" else table.cuda() * 1e4)
+    rng = np.random.RandomState(1)
+    nodes = [rng.randint(0, int(s) + 1, (64, 3)).astype(np.float32) / s for s in cfg.scalings()]
+    pos = torch.from_numpy(np.concatenate([rng.rand(2000, 3).astype(np.float32), *nodes])).cuda()
+    eids = (torch.from_numpy(rng.randint(0, num_experts, len(pos)).astype(np.int32)).cuda()
+            if with_experts else None)
+    kernels.reset_launches()
+    got = HE.hash_encode(table, pos, cfg, eids)
+    assert kernels.LAUNCHES["hash_encode_fwd"] == 1
+    torch.testing.assert_close(got, HE.hash_encode_plain(table, pos, cfg, eids),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_expert_routing_near_bisectors_matches_cpu():
+    """Samples within rounding of the bisector of two centroids go to the
+    same expert on the card as on the CPU, in the plain router and in K4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.fields.router import assign_experts
+
+    g = torch.Generator().manual_seed(0)
+    xs, ys = torch.meshgrid(torch.arange(4.0), torch.arange(4.0), indexing="ij")
+    cent = torch.stack([xs.ravel(), ys.ravel(), torch.zeros(16)], -1) * 10.0 - 15.0
+    cent[:, 2] = 0.0
+    aabbs = torch.stack([cent - torch.tensor([10.0, 10.0, 2.5]),
+                         cent + torch.tensor([10.0, 10.0, 2.5])], 1).contiguous()
+    pos = (torch.rand((200000, 3), generator=g) - 0.5) * torch.tensor([60.0, 60.0, 8.0])
+    planes = torch.tensor([-10.0, 0.0, 10.0])[torch.randint(0, 3, (200000,), generator=g)]
+    pos[:, 0] = planes + (torch.rand(200000, generator=g) - 0.5) * 1e-5
+    torch.testing.assert_close(assign_experts(pos.cuda(), cent.cuda()).cpu(),
+                               assign_experts(pos, cent), rtol=0, atol=0)
+    G = 8
+    grid = torch.rand((16 * G ** 3, 8), generator=g)
+    kargs = [t.cuda() for t in (grid, cent, aabbs, pos)] + [G]
+    torch.testing.assert_close(PF.prop_grid_density(*kargs), PF.prop_grid_density_plain(*kargs),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_render_kernel_path_matches_plain_path(cuda_model):
+    """The same small model rendered through the kernels (CUDA tensors) and
+    through the plain versions (CPU tensors)."""
+    cams = CameraParams(
+        c2w=torch.tensor([[[1.0, 0, 0, 0.2], [0, 1.0, 0, 0.1], [0, 0, 1.0, 0.0]]]),
+        fx=torch.tensor([8.0]), fy=torch.tensor([8.0]), cx=torch.tensor([10.0]),
+        cy=torch.tensor([6.0]), video_ids=torch.zeros(1, dtype=torch.int32))
+    renderer = ImageRenderer(cuda_model.config)
+    grid = cuda_model.make_prop_grid()
+    cpu = renderer.render(cuda_model, cams, 0, 12, 20, prop_grid=grid)
+    gpu_model = cuda_model.cuda()
+    gpu = renderer.render(gpu_model, cams.to("cuda"), 0, 12, 20, prop_grid=grid.cuda())
+    for key in ("rgb", "accumulation", "expected_depth", "semantics"):
+        np.testing.assert_allclose(gpu[key], cpu[key], rtol=1e-5, atol=1e-5, err_msg=key)
