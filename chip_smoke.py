@@ -5,25 +5,41 @@
 
 Phases (any failure exits nonzero before the result lines are printed):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from presight_tpu_torch/csrc and time the build;
-  3. check each kernel (K1-K4) against its plain PyTorch version on the card
-     at the main path's shapes, with the stated tolerances, and time both
-     with CUDA events (median of several launches);
+  2. build the CUDA kernels from presight_tpu_torch/csrc (one nvcc per
+     source, in parallel) and time the build;
+  3. check each forward kernel (K1-K4) against its plain PyTorch version on
+     the card at the main path's shapes, with the stated tolerances, and
+     time both with CUDA events (median of 10 launches after warm-up);
   4. serve: initialise boston-seaport-camera-dino-c0-tpu at full width from
      a seed, build the cached proposal grid, render one 450x800 camera with
      ImageRenderer (11 chunks of 32768 rays) and extract priors from one
      6-camera frame at downscale 5; check finite outputs, the pickle schema,
-     and that every kernel was launched on this path;
+     and that K1-K4 were launched on this path;
   5. hold the kernel path against the plain path (the same model on the
      CPU): the full-width cached grid, and a small render with each
-     device's own grid (median depths may differ only at threshold ties).
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
-Writes the prior pickle under outputs/chip_smoke/.
+     device's own grid (median depths may differ only at threshold ties);
+  6. check the backward kernels (K1b, K2b, K3b, K5) against their plain
+     versions on the card at the training path's shapes, K5 also against
+     one index_add_ call, and time kernel, plain and library the same way;
+  7. train: the Trainer on a synthetic in-memory dataset (six 225x400
+     cameras), 5 full-width steps of 65,536 rays in microbatches of 1024;
+     print each step's losses, seconds, rays/s and grid refresh, and the
+     peak device memory; fail on a non-finite loss or parameter, or if any
+     of the eight kernels was not launched on the training path; then one
+     more step under torch.profiler for the device's busy time and idle
+     share (the table goes to outputs/chip_smoke/train_profile.txt);
+  8. hold the training kernel path against the plain path for one step on
+     the same weights, 2048-ray batch and draws (the plain path on the CPU):
+     losses, every gradient leaf and the updated parameters.
+The line before the last is a JSON object with each kernel's launches (on
+the serving and the training path), error, times and bound; the last line
+is {"ok": true, "device": {...}}. Writes the prior pickle under
+outputs/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -49,7 +65,23 @@ KERNEL_INFO = {
                           "presight_tpu/ops/rays.py:68"),
     "prop_grid_density_fwd": ("presight_tpu_torch/csrc/prop_grid.cu",
                               "presight_tpu/fields/prop_field.py:160"),
+    "hash_encode_bwd": ("presight_tpu_torch/csrc/hash_encode_bwd.cu",
+                        "presight_tpu/ops/hash_encoding.py:294"),
+    "mlp_blocks_bwd": ("presight_tpu_torch/csrc/mlp_blocks_bwd.cu",
+                       "presight_tpu/ops/mlp.py:184"),
+    "volume_render_bwd": ("presight_tpu_torch/csrc/volume_render_bwd.cu",
+                          "presight_tpu/ops/rays.py:68"),
+    "sorted_accum": ("presight_tpu_torch/csrc/sorted_accum.cu",
+                     "scripts_dev/pallas_accum.py:30"),
 }
+SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
+                 "prop_grid_density_fwd")
+# Published peaks of one H100 SXM at 700 W: HBM bandwidth and f32 outside
+# the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TRAIN_STEPS = 5
+TRAIN_HW = (225, 400)
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -68,13 +100,37 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound(bytes_moved: float, flops: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    the larger of the bytes over the HBM rate and the f32 operations over
+    the f32 peak."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlp_work(layers, n: int, factor: int):
+    """(bytes, flops) of an MLP over n rows: each row's input and output and
+    every expert's weights once; factor 2 (forward) or 6 (backward: the
+    recomputed forward and the dX and dW products) flops per multiply-add,
+    plus dX and the weight gradients written for the backward."""
+    dims = [layers[0][0].shape[-2]] + [w.shape[-1] for w, _ in layers]
+    macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    weights = sum(w.numel() + b.numel() for w, b in layers) * 4
+    rows = n * (dims[0] + dims[-1]) * 4
+    if factor == 2:
+        return rows + weights, 2 * n * macs
+    return rows + n * dims[0] * 4 + 2 * weights, factor * n * macs
+
+
 class Checker:
-    """Collects per-kernel errors and times; a failure is recorded and
-    reported, and makes the run fail at the end of the phase."""
+    """Collects per-kernel errors, times and bounds; a failure is recorded
+    and reported, and makes the run fail at the end of the phase."""
 
     def __init__(self):
         self.errors = {name: 0.0 for name in KERNEL_INFO}
         self.times = {}
+        self.library = {}
+        self.bounds = {}
         self.failures = []
 
     def close(self, kernel, case, got, want, atol, rtol):
@@ -168,8 +224,11 @@ def scene(num_experts: int):
     return aabbs, cent, cams
 
 
+@torch.no_grad()
 def check_kernels(model, grid, chk: Checker):
     from presight_tpu_torch.configs import tile_model_config
+    from presight_tpu_torch.fields.router import assign_experts
+    from presight_tpu_torch.ops.math import contract_positions
     from presight_tpu_torch.fields import prop_field as PF
     from presight_tpu_torch.fields.router import build_padded_routing
     from presight_tpu_torch.ops import hash_encoding as HE
@@ -197,6 +256,10 @@ def check_kernels(model, grid, chk: Checker):
               HE.hash_encode_plain(*args), 1e-7, 1e-5)
     chk.times["hash_encode_fwd"] = (time_ms(lambda: HE.hash_encode(*args)),
                                     time_ms(lambda: HE.hash_encode_plain(*args)))
+    rows_read = HE.hash_keys(pos, fcfg, routing.expert_of_slot).unique().numel()
+    chk.bounds["hash_encode_fwd"] = bound(
+        n_pad * 16 + rows_read * fcfg.row_features * 4 + n_pad * fcfg.out_dim * 4,
+        n_pad * fcfg.num_levels * (fcfg.features_per_level * 16 + 30))
     n_prop = n_rays * cfg.num_proposal_samples_per_ray[1]
     pargs = (params["props"][0]["hash_table"], torch.rand((n_prop, 3), generator=gen, device=dev),
              cfg.prop(1).hash, torch.randint(0, E, (n_prop,), generator=gen, device=dev,
@@ -252,6 +315,7 @@ def check_kernels(model, grid, chk: Checker):
             chk.times["mlp_blocks_fwd"] = (
                 time_ms(lambda: M.apply_mlp_blocks(layers, h, be, sig)),
                 time_ms(lambda: M.apply_mlp_blocks_plain(layers, h, be, sig)))
+            chk.bounds["mlp_blocks_fwd"] = bound(*mlp_work(layers, h.shape[0], 2))
     prop_mlp = params["props"][0]["mlp"]
     h = torch.randn((n_prop, cfg.prop(1).hash.out_dim), generator=gen, device=dev)
     chk.close("mlp_blocks_fwd", f"proposal 8-64-1 N={n_prop}", M.apply_mlp(prop_mlp, h),
@@ -275,6 +339,9 @@ def check_kernels(model, grid, chk: Checker):
                        want["weights"], 0.5, 1e-6)
     chk.times["volume_render_fwd"] = (time_ms(lambda: VR.volume_render(*vargs)),
                                       time_ms(lambda: VR.volume_render_plain(*vargs)))
+    C = payload.shape[1]
+    chk.bounds["volume_render_fwd"] = bound(
+        n_rays * S * (4 * 5 + C * 4) + n_rays * (C + 3) * 4, n_rays * S * (12 + 2 * C))
     for S in cfg.num_proposal_samples_per_ray:
         d = torch.rand((n_rays, S), generator=gen, device=dev) * 0.05
         s = torch.exp(torch.randn((n_rays, S), generator=gen, device=dev) * 2.0) * 4.0
@@ -294,6 +361,483 @@ def check_kernels(model, grid, chk: Checker):
     chk.times["prop_grid_density_fwd"] = (
         time_ms(lambda: PF.prop_grid_density(*kargs)),
         time_ms(lambda: PF.prop_grid_density_plain(*kargs)))
+    G = cfg.prop_grid_res
+    eids = assign_experts(gpos, buf["centroids"]).long()
+    cell = torch.clamp(torch.floor(contract_positions(gpos, buf["aabbs"][eids])[0] * G), 0, G - 1)
+    cell = cell.long()
+    cells_read = ((eids * G + cell[:, 0]) * G + cell[:, 1]) * G + cell[:, 2]
+    chk.bounds["prop_grid_density_fwd"] = bound(
+        n_grid * 16 + cells_read.unique().numel() * 32 + E * 36 * 4,
+        n_grid * (E * 8 + 60))
+
+
+def backward_cases(model):
+    """The training path's shapes of one 1024-ray microbatch: the main
+    field's padded slots (48 samples per ray, 512-row expert blocks), the
+    fine proposal field's 32 samples per ray, the sky heads' padded ray
+    routing."""
+    from presight_tpu_torch.fields.router import build_padded_routing
+    from presight_tpu_torch.ops.mlp import GROUP_BLOCK
+
+    cfg = model.config
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    E = model.params()["field"]["centroids"].shape[0]
+    rays = 1024
+    main = build_padded_routing(torch.randint(0, E, (rays * cfg.num_nerf_samples_per_ray,),
+                                              generator=gen, device=dev, dtype=torch.int32),
+                                E, GROUP_BLOCK)
+    sky = build_padded_routing(torch.randint(0, E, (rays,), generator=gen, device=dev,
+                                             dtype=torch.int32), E, GROUP_BLOCK)
+    return gen, E, rays, main, sky
+
+
+@torch.no_grad()
+def check_backward_kernels(model, chk: Checker):
+    from presight_tpu_torch.configs import tile_model_config
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import mlp as M
+    from presight_tpu_torch.ops import renderers as VR
+
+    cfg, params = model.config, model.params()
+    gen, E, rays, main, sky = backward_cases(model)
+    dev = main.to_slot.device
+    n_main = main.to_slot.shape[0]
+    n_prop = rays * cfg.num_proposal_samples_per_ray[1]
+
+    # K1b and K5: the table gradient of the main field (57,344 slots x 4
+    # levels, 80-wide rows) and of the fine proposal field (32,768 samples x
+    # 2 levels, 32-wide rows), 'shared' storage with experts; K1b also on
+    # 'cell' and 'corner' storage, with and without experts.
+    fcfg, pcfg = cfg.field.hash, cfg.prop(1).hash
+    ref_cfg = tile_model_config("boston-seaport", 0, "camera", tpu=False).field.hash
+    cases = [("main field shared", fcfg, n_main, main.expert_of_slot),
+             ("proposal field shared", pcfg, n_prop,
+              torch.randint(0, E, (n_prop,), generator=gen, device=dev, dtype=torch.int32))]
+    for hcfg in (dataclasses.replace(fcfg, storage="cell"), ref_cfg):
+        for eids in (None, main.expert_of_slot):
+            cases.append((f"{hcfg.storage} {hcfg.num_levels}x{hcfg.features_per_level} "
+                          f"{'experts' if eids is not None else 'single'}", hcfg, n_main, eids))
+    for name, hcfg, n, eids in cases:
+        pos = torch.rand((n, 3), generator=gen, device=dev)
+        g = torch.randn((n, hcfg.out_dim), generator=gen, device=dev) * 1e-3
+        keys, rows = HE.hash_encode_bwd(pos, hcfg, eids, g)
+        pkeys, prows = HE.hash_encode_bwd_plain(pos, hcfg, eids, g)
+        bad_keys = int((keys != pkeys).sum())
+        print(f"  hash_encode_bwd {name} N={n}: keys differ on {bad_keys} -> "
+              f"{'ok' if bad_keys == 0 else 'FAIL'}")
+        if bad_keys:
+            chk.failures.append(f"hash_encode_bwd {name}: {bad_keys} keys differ")
+        chk.close("hash_encode_bwd", f"{name} rows", rows, prows, 1e-9, 1e-6)
+        if hcfg.storage != "shared":
+            continue
+        num_rows = hcfg.num_levels * hcfg.table_size
+        skeys, order = torch.sort(keys, stable=True)
+        srows = rows.index_select(0, order)
+        out = torch.zeros((num_rows, rows.shape[1]), device=dev)
+        HE.sorted_accum(skeys, srows, out)
+        want = torch.zeros_like(out)
+        HE.sorted_accum_plain(skeys, srows, want)
+        chk.close("sorted_accum", f"{name} N={keys.numel()} C={rows.shape[1]} T={num_rows}",
+                  out, want, 1e-9, 1e-5)
+        lib = torch.zeros_like(out).index_add_(0, skeys.long(), srows)
+        chk.close("sorted_accum", f"{name} vs index_add_", out, lib, 1e-9, 1e-5)
+        if name.startswith("main"):
+            chk.times["hash_encode_bwd"] = (time_ms(lambda: HE.hash_encode_bwd(pos, hcfg, eids, g)),
+                                            time_ms(lambda: HE.hash_encode_bwd_plain(pos, hcfg,
+                                                                                     eids, g)))
+            chk.bounds["hash_encode_bwd"] = bound(n * 16 + g.numel() * 4 + keys.numel() * 4
+                                                  + rows.numel() * 4, rows.numel() * 2)
+
+            def kernel():
+                HE.sorted_accum(skeys, srows, torch.zeros_like(out))
+
+            def plain():
+                HE.sorted_accum_plain(skeys, srows, torch.zeros_like(out))
+
+            chk.times["sorted_accum"] = (time_ms(kernel), time_ms(plain))
+            chk.library["sorted_accum"] = time_ms(
+                lambda: torch.zeros_like(out).index_add_(0, skeys.long(), srows))
+            chk.bounds["sorted_accum"] = bound(skeys.numel() * 4 + srows.numel() * 4
+                                               + out.numel() * 4, srows.numel())
+            print(f"  sorted_accum {name}: {skeys.unique_consecutive().numel()} distinct keys "
+                  f"of {skeys.numel()}")
+
+    # K2b: the six MLP stacks of the training path.
+    f, s_ = params["field"], params["sky"]
+    stacks = [("base 40-64-80", f["base_mlp"], main.block_expert, False),
+              ("rgb 47-64-64-3 sigmoid", f["rgb_head"], main.block_expert, True),
+              ("semantic 64-64-64-64", f["semantic_head"], main.block_expert, False),
+              ("sky rgb 32-32-32-3 sigmoid", s_["rgb_head"], sky.block_expert, True),
+              ("sky semantic 16-32-32-64", s_["semantic_head"], sky.block_expert, False),
+              ("proposal 8-64-1", [(w[None], b[None]) for w, b in params["props"][0]["mlp"]],
+               None, False)]
+    for name, layers, be, sig in stacks:
+        n = n_prop if be is None else be.shape[0] * 512
+        h = torch.randn((n, layers[0][0].shape[-2]), generator=gen, device=dev)
+        g = torch.randn((n, layers[-1][0].shape[-1]), generator=gen, device=dev)
+        layers = [(w.detach(), b.detach()) for w, b in layers]
+        dx, grads = M.mlp_blocks_bwd(layers, h, be, sig, g)
+        pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, be, sig, g)
+        chk.close("mlp_blocks_bwd", f"{name} N={n} dX", dx, pdx, 1e-5 * float(pdx.abs().max()),
+                  1e-4)
+        for i, ((dw, db), (pw, pb)) in enumerate(zip(grads, pgrads)):
+            chk.close("mlp_blocks_bwd", f"{name} dW[{i}]", dw, pw,
+                      1e-5 * float(pw.abs().max()), 1e-4)
+            chk.close("mlp_blocks_bwd", f"{name} db[{i}]", db, pb,
+                      1e-5 * float(pb.abs().max()), 1e-4)
+        if name.startswith("base"):
+            chk.times["mlp_blocks_bwd"] = (time_ms(lambda: M.mlp_blocks_bwd(layers, h, be, sig, g)),
+                                           time_ms(lambda: M.mlp_blocks_bwd_plain(layers, h, be,
+                                                                                  sig, g)))
+            chk.bounds["mlp_blocks_bwd"] = bound(*mlp_work(layers, n, 6))
+
+    # K3b: the final render (48 samples, the 67-wide payload in padded slots)
+    # with every upstream gradient non-zero, saturated and empty rays among
+    # them; and the fine proposal round (32 samples, weights only).
+    S = cfg.num_nerf_samples_per_ray
+    deltas = torch.rand((rays, S), generator=gen, device=dev) * 0.05
+    dens = torch.exp(torch.randn((rays, S), generator=gen, device=dev) * 2.0) * 4.0
+    dens[:8, 5] = 1e30  # saturated: accumulation exactly 1
+    dens[8:16] = 0.0  # empty: accumulation exactly 0
+    steps = torch.cumsum(deltas, -1) + 0.005
+    C = 3 + cfg.semantic_dim
+    payload = torch.rand((n_main, C), generator=gen, device=dev)
+    index = main.from_slot
+    ups = [torch.randn(shape, generator=gen, device=dev) for shape in ((rays, S), (rays,), (rays,),
+                                                                       (rays, C))]
+    fwd = VR.volume_render(deltas, dens, steps, payload, index)
+    sat = int((fwd["accumulation"] == 1.0).sum())
+    empty = int((fwd["accumulation"] == 0.0).sum())
+    vargs = (deltas, dens, steps, payload, index, fwd["weights"], *ups)
+    got, want = VR.volume_render_bwd(*vargs), VR.volume_render_bwd_plain(*vargs)
+    print(f"  volume_render_bwd: {sat} saturated and {empty} empty rays of {rays}")
+    if sat == 0 or empty == 0:
+        chk.failures.append("volume_render_bwd: no saturated or no empty ray in the check")
+    chk.close("volume_render_bwd", f"d density R={rays} S={S}", got[0], want[0],
+              1e-5 * float(want[0].abs().max()), 1e-4)
+    chk.close("volume_render_bwd", f"d payload P={n_main} C={C}", got[1], want[1],
+              1e-5 * float(want[1].abs().max()), 1e-4)
+    chk.times["volume_render_bwd"] = (time_ms(lambda: VR.volume_render_bwd(*vargs)),
+                                      time_ms(lambda: VR.volume_render_bwd_plain(*vargs)))
+    chk.bounds["volume_render_bwd"] = bound(
+        rays * S * (4 * 7 + 2 * C * 4) + rays * (C + 2) * 4, rays * S * (30 + 4 * C))
+    Sp = cfg.num_proposal_samples_per_ray[1]
+    d = torch.rand((rays, Sp), generator=gen, device=dev) * 0.05
+    sg = torch.exp(torch.randn((rays, Sp), generator=gen, device=dev) * 2.0) * 4.0
+    w = VR.volume_render(d, sg)["weights"]
+    gw = torch.randn((rays, Sp), generator=gen, device=dev)
+    args = (d, sg, None, None, None, w, gw, None, None, None)
+    want = VR.volume_render_bwd_plain(*args)[0]
+    chk.close("volume_render_bwd", f"d density R={rays} S={Sp} weights only",
+              VR.volume_render_bwd(*args)[0], want, 1e-5 * float(want.abs().max()), 1e-4)
+
+
+def synthetic_dataset(cams, num_features: int):
+    """Six 225x400 views of scene()'s cameras: gradient rgb, the top quarter
+    sky, low-rank f16 features (as presight_tpu/data/synthetic.py draws
+    them, without image files); intrinsics scaled to the image size."""
+    H, W = TRAIN_HW
+    rng = np.random.RandomState(SEED)
+    n = cams.num_cameras
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    rgb = np.zeros((n, H, W, 3), np.float32)
+    feats = np.zeros((n, H, W, num_features), np.float16)
+    for i in range(n):
+        yaw = 2 * np.pi * i / n
+        rgb[i] = np.stack([0.5 + 0.4 * np.sin(xx / W * 3 + yaw),
+                           0.5 + 0.4 * np.cos(yy / H * 2 + i * 0.3),
+                           0.4 + 0.3 * np.sin((xx + yy) / (W + H) * 4)], -1)
+        basis = rng.randn(4, num_features).astype(np.float32) * 0.2 + 0.5
+        coefs = np.stack([np.sin(xx / W * 2), np.cos(yy / H * 2), np.zeros_like(xx),
+                          np.full_like(xx, np.sin(yaw))], -1)
+        feats[i] = np.clip(coefs @ basis * 0.25 + 0.4, 0, 1).astype(np.float16)
+    sky = np.zeros((n, H, W), np.float32)
+    sky[:, :H // 4] = 1.0
+    depth = np.full((n, H, W), -1.0, np.float32)
+    scale = H / 900.0
+    train_cams = dataclasses.replace(cams, fx=cams.fx * scale, fy=cams.fy * scale,
+                                     cx=cams.cx * scale, cy=cams.cy * scale)
+    return rgb, sky, depth, feats, train_cams
+
+
+@contextlib.contextmanager
+def recording_sorted_accum():
+    """Keep a copy of the inputs of the last K5 launch on the main field's
+    table gradient (the largest of a microbatch): the keys of a training
+    microbatch cluster (a ray's samples share coarse cells), so K5's run
+    lengths, and its time, differ from those of random keys."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    real = HE.sorted_accum
+    recorded = {}
+
+    def record(keys, rows, out):
+        if not recorded or rows.numel() >= recorded["rows"].numel():
+            recorded.update(keys=keys.clone(), rows=rows.clone(), shape=tuple(out.shape))
+        return real(keys, rows, out)
+
+    HE.sorted_accum = record
+    try:
+        yield recorded
+    finally:
+        HE.sorted_accum = real
+
+
+def time_sorted_accum(recorded, chk: Checker):
+    """K5 against its plain version and one index_add_ call on the keys and
+    rows of a training microbatch (output zero fill included in all three)."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    keys, rows, shape = recorded["keys"], recorded["rows"], recorded["shape"]
+    out = torch.zeros(shape, device=keys.device)
+    HE.sorted_accum(keys, rows, out)
+    want = torch.zeros_like(out)
+    HE.sorted_accum_plain(keys, rows, want)
+    chk.close("sorted_accum", f"training keys N={keys.numel()} C={shape[1]} T={shape[0]}",
+              out, want, 1e-9, 1e-5)
+    chk.close("sorted_accum", "training keys vs index_add_", out,
+              torch.zeros_like(out).index_add_(0, keys.long(), rows), 1e-9, 1e-5)
+    runs = torch.unique_consecutive(keys, return_counts=True)[1]
+    chk.times["sorted_accum"] = (
+        time_ms(lambda: HE.sorted_accum(keys, rows, torch.zeros(shape, device=keys.device))),
+        time_ms(lambda: HE.sorted_accum_plain(keys, rows, torch.zeros(shape, device=keys.device))))
+    chk.library["sorted_accum"] = time_ms(
+        lambda: torch.zeros(shape, device=keys.device).index_add_(0, keys.long(), rows))
+    chk.bounds["sorted_accum"] = bound(keys.numel() * 4 + rows.numel() * 4
+                                       + shape[0] * shape[1] * 4, rows.numel())
+    k_ms, p_ms = chk.times["sorted_accum"]
+    print(f"  sorted_accum on training keys: {runs.numel()} runs of {keys.numel()} rows, longest "
+          f"{int(runs.max())}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
+          f"{chk.library['sorted_accum']:.4f} ms, bound {chk.bounds['sorted_accum'][0]:.4f} ms")
+
+
+def train_phase(aabbs, cent, cams, chk: Checker):
+    """Phase 7. Returns (trainer, launches on the training path, problems)."""
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs import tile_trainer_config
+    from presight_tpu_torch.data.device_store import DeviceRayStore
+    from presight_tpu_torch.engine.trainer import Trainer
+
+    config = tile_trainer_config("boston-seaport", 0, "camera")
+    rgb, sky, depth, feats, train_cams = synthetic_dataset(cams, config.pipeline.model.semantic_dim)
+    t0 = time.perf_counter()
+    store = DeviceRayStore(rgb, sky, depth, feats)
+    trainer = Trainer(config, store, train_cams, aabbs, cent, num_train_cameras=len(rgb),
+                      num_train_videos=1)
+    torch.cuda.synchronize()
+    print(f"  set-up: {len(store)} rays on the card, model and Adam state in "
+          f"{time.perf_counter() - t0:.2f} s; {config.pipeline.datamanager.train_num_rays_per_batch}"
+          f" rays per step in microbatches of {config.microbatch_rays}")
+    problems = []
+    log = []
+
+    def report(step, m):
+        rays = config.pipeline.datamanager.train_num_rays_per_batch
+        losses = {k: v for k, v in m.items() if k.endswith("loss")}
+        print(f"  step {step}: {m['step_seconds']:.3f} s, {rays / m['step_seconds']:.1f} rays/s, "
+              f"grid refreshed={bool(m['grid_refreshed'])}, psnr={m['psnr']:.3f}, "
+              + ", ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+        log.append(m)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with recording_sorted_accum() as recorded:
+        trainer.train(num_steps=TRAIN_STEPS, callback=report)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"  launches on the training path: {launches}")
+    steady = [m["step_seconds"] for m in log[1:]]
+    print(f"  steady step (steps 1-{TRAIN_STEPS - 1}): median {statistics.median(steady):.4f} s, "
+          f"{config.pipeline.datamanager.train_num_rays_per_batch / statistics.median(steady):.1f}"
+          " rays/s")
+    for m in log:
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            problems.append(f"non-finite metrics {bad}")
+    for name, p in trainer.model.named_parameters():
+        if not bool(torch.isfinite(p).all()):
+            problems.append(f"parameter {name} not finite")
+    for name in KERNEL_INFO:
+        if launches[name] <= 0:
+            problems.append(f"{name} was not launched on the training path")
+    if recorded:
+        time_sorted_accum(recorded, chk)
+        problems += chk.failures
+    profile_step(trainer)
+    return trainer, launches, problems
+
+
+def profile_step(trainer):
+    """One more training step under torch.profiler: device busy time and
+    idle share of the step's wall time, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train(num_steps=1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -1.0
+    for a, b in intervals:  # union of kernel intervals, us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    print(f"  profiled step: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
+          f"idle share {1.0 - busy / 1e6 / wall:.3f}")
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    out = OUT_DIR / "train_profile.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(table)
+    for line in table.splitlines()[:30]:
+        print("   ", line)
+
+
+def _to_cpu(obj):
+    """A RayBundle or RaySamples with every tensor moved to the CPU."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+@contextlib.contextmanager
+def replaying_samples(mode: str, recorded: list):
+    """mode 'record': keep each microbatch's ray bundle and proposal
+    sampling result; 'replay': hand them, moved to the CPU, to the CPU path,
+    which computes every proposal round's densities and weights itself from
+    those bins. The bins are stop-gradient, so every quantity that carries
+    a gradient is still computed by each path on its own."""
+    from presight_tpu_torch.engine import train_step as TS
+    from presight_tpu_torch.models import nerfacto_ms as NM
+    from presight_tpu_torch.ops.renderers import volume_render
+
+    real_rays, real_sample = TS.generate_rays, NM.proposal_sample
+
+    def record_rays(cameras, ray_index):
+        recorded.append(real_rays(cameras, ray_index))
+        return recorded[-1]
+
+    def record_sample(*a, **k):
+        recorded.append(real_sample(*a, **k))
+        return recorded[-1]
+
+    def replay_rays(cameras, ray_index):
+        return _to_cpu(recorded.pop(0))
+
+    def replay_sample(bundle, density_fns, *a, stop_prop_grad=False, **k):
+        final, _, rounds = recorded.pop(0)
+        weights, samples = [], []
+        for fn, rs in zip(density_fns, rounds):
+            rs = _to_cpu(rs)
+            density = fn(rs.positions())
+            if stop_prop_grad:
+                density = density.detach()
+            weights.append(volume_render(rs.deltas().contiguous(), density.contiguous())["weights"])
+            samples.append(rs)
+        return _to_cpu(final), weights, samples
+
+    TS.generate_rays, NM.proposal_sample = ((record_rays, record_sample) if mode == "record"
+                                            else (replay_rays, replay_sample))
+    try:
+        yield
+    finally:
+        TS.generate_rays, NM.proposal_sample = real_rays, real_sample
+
+
+def path_vs_plain_phase(trainer):
+    """Phase 8: one step of 2048 rays (2 microbatches of 1024) on the same
+    weights, batch and draws through the kernels (card) and the plain
+    versions (CPU). The CPU path replays the card's ray bundles and sample
+    bins: otherwise the PDF resampled from K3's weights (summed in another
+    order) moves samples by rounding, and a sample within rounding of a
+    hash-cell face reads the neighbouring cell (the first full run of this
+    phase measured 12% relative L2 difference on the finest level's table
+    gradient from that alone). The rays are ground pixels: on a sky pixel
+    the sky loss is -log(1 - acc), and where a ray's accumulation is within
+    1e-5 of 1 that log turns the f32 rounding of acc into a 1e-3 change of
+    the loss (the first two runs of this phase: sky_loss 2.1e-3 apart,
+    finest-level table gradient 9.5% in L2). Tolerances: losses rtol 1e-4,
+    except the sky loss rtol 1e-3 (on ground rays it is -log(acc), about
+    1 - acc for a ray within 1e-3 of saturating, so the 6e-8 rounding of acc
+    is 6e-5 of it; measured 1.2e-4) and the interlevel loss rtol 2e-3 (a
+    cumsum of a cumsum of the blurred histogram, with cancellation, divided
+    by the proposal weight + 1e-5; the CPU tests hold the blurred values
+    against JAX at 1e-5 of their largest; measured 8.0e-4);
+    each gradient leaf within 1e-3 of its norm (relative L2; sums in other
+    orders, and a ReLU or clip whose input sits within rounding of its
+    kink), the proposal field's leaves within 1e-2 (their gradient is the
+    interlevel loss's); updated parameters, where |g| is over 1e-3 of the
+    leaf's largest, atol 1e-6 + rtol 1e-6 on at least 99.9% of them (the
+    first Adam step is lr * sign(g + wd p))."""
+    from presight_tpu_torch import bridge
+    from presight_tpu_torch.engine.optimizers import make_optimizers
+    from presight_tpu_torch.engine.train_step import StepScalars, train_step
+    from presight_tpu_torch.models.nerfacto_ms import NerfactoNuscMS
+
+    config = trainer.config
+    mcfg = config.pipeline.model
+    tree = bridge.to_numpy(trainer.model.params())
+    grid = trainer.model.make_prop_grid()
+    rng = np.random.RandomState(SEED + 2)
+    ground = np.flatnonzero(trainer.store.sky.cpu().numpy() == 0.0)
+    rows = rng.choice(ground, 2048, replace=False)
+    batch = trainer.store.batch(trainer.store.ray_index(rows), with_features=True)
+    draws = [[torch.from_numpy(rng.rand(1024, 1).astype(np.float32)) for _ in range(3)]
+             for _ in range(2)]
+    results, recorded = {}, []
+    for device, mode in (("cuda", "record"), ("cpu", "replay")):
+        model = NerfactoNuscMS(mcfg, bridge.from_jax_params(tree)).to(device)
+        opts = make_optimizers(model.groups(), config.optimizers)
+        t0 = time.perf_counter()
+        with replaying_samples(mode, recorded):
+            metrics = train_step(model, opts, trainer.cameras.to(device),
+                                 {k: v.to(device) for k, v in batch.items()},
+                                 StepScalars(0.5, 5.0, 0.0), stop_prop_grad=False,
+                                 microbatch_rays=1024, prop_grid=grid.to(device),
+                                 draws=[[u.to(device) for u in d] for d in draws])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {device}: step in {time.perf_counter() - t0:.2f} s")
+        leaves = [(p.grad.cpu() if p.grad is not None else None, p.detach().cpu())
+                  for p in model.leaves]
+        results[device] = (metrics, leaves)
+    (m_gpu, l_gpu), (m_cpu, l_cpu) = results["cuda"], results["cpu"]
+    problems = []
+    for key, v in m_cpu.items():
+        err = abs(m_gpu[key] - v) / max(abs(v), 1e-12)
+        ok = err <= {"interlevel_loss": 2e-3, "sky_loss": 1e-3}.get(key, 1e-4)
+        print(f"  {key}: card {m_gpu[key]:.7g} cpu {v:.7g} rel err {err:.2e} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"{key} differs by {err:.2e}")
+    worst_g, compared, off = {}, 0, 0
+    labels = trainer.model.labels
+    for i, ((g_gpu, p_gpu), (g_cpu, p_cpu)) in enumerate(zip(l_gpu, l_cpu)):
+        if g_cpu is None:
+            if g_gpu is not None or not torch.equal(p_gpu, p_cpu):
+                problems.append(f"frozen leaf {i} changed")
+            continue
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        worst_g[labels[i]] = max(worst_g.get(labels[i], 0.0), rel)
+        if rel > (1e-2 if labels[i] == "proposal_networks" else 1e-3):
+            problems.append(f"gradient leaf {i} {tuple(g_cpu.shape)}: relative L2 error {rel:.2e}")
+        sel = g_cpu.abs() > 1e-3 * g_cpu.abs().max()
+        diff = (p_gpu - p_cpu).abs()[sel]
+        compared += int(sel.sum())
+        off += int((diff > 1e-6 + 1e-6 * p_cpu.abs()[sel]).sum())
+    print("  gradients, worst leaf relative L2 error by group: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst_g.items())
+          + " (tol: fields 1e-3, proposal_networks 1e-2)")
+    print(f"  updated parameters: {off} of {compared} compared elements out of tolerance "
+          f"({off / max(compared, 1):.2e}, tol 1e-3)")
+    if off > 1e-3 * compared:
+        problems.append(f"{off} of {compared} updated parameters differ")
+    return problems
 
 
 def main() -> int:
@@ -309,7 +853,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    from presight_tpu_torch import kernels
+    from presight_tpu_torch import kernels, native
     from presight_tpu_torch.configs import TILES, tile_model_config
     from presight_tpu_torch.engine.evaluator import ImageRenderer
     from presight_tpu_torch.models.nerfacto_ms import init_model
@@ -319,7 +863,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = kernels.build()
     kernels.lib()
-    print(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
+    native.lib()
+    print(f"phase 2: kernels (and the host voxel accumulator) built in "
+          f"{time.perf_counter() - t0:.2f} s -> {lib_path.name}")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
@@ -330,9 +876,9 @@ def main() -> int:
     aabbs, cent, cams = scene(num_experts)
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
-    model_cpu = init_model(gen, config, aabbs, cent, NUM_CAMERAS, NUM_VIDEOS)
+    model_cpu = init_model(gen, config, aabbs, cent, NUM_CAMERAS, NUM_VIDEOS, device="cpu")
     model = init_model(torch.Generator().manual_seed(SEED), config, aabbs, cent,
-                       NUM_CAMERAS, NUM_VIDEOS).cuda()
+                       NUM_CAMERAS, NUM_VIDEOS)
     cams_gpu = cams.to("cuda")
     print(f"model boston-seaport-camera-dino-c0-tpu: {num_experts} experts, "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
@@ -386,7 +932,7 @@ def main() -> int:
           f"{-(-n_rays // renderer.chunk)} chunks of {renderer.chunk})")
     print(f"  extraction: 6 cameras at downscale 5 in {t_extract:.3f} s, "
           f"{len(result['points'])} voxels")
-    print(f"  launches on the main path: {launches}")
+    print(f"  launches on the serving path: {launches}")
 
     problems = []
     for key, v in img.items():
@@ -405,9 +951,9 @@ def main() -> int:
             problems.append(f"pickle {key} not finite")
     if len(result["points"]) == 0 or result["origin"].dtype != np.float32:
         problems.append("pickle empty or origin not float32")
-    for name in kernels.KERNELS:
+    for name in SERVE_KERNELS:
         if launches[name] <= 0:
-            problems.append(f"{name} was not launched on the main path")
+            problems.append(f"{name} was not launched on the serving path")
     if problems:
         print("phase 4 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
@@ -450,11 +996,47 @@ def main() -> int:
     if problems:
         print("phase 5 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
+    serve_launches = launches
+    del model_cpu, grid_cpu
+
+    # Phase 6: the backward kernels against their plain versions.
+    print("phase 6: backward kernels vs plain PyTorch on the card")
+    check_backward_kernels(model, chk)
+    torch.cuda.synchronize()
+    for name in KERNEL_INFO:
+        k_ms, p_ms = chk.times[name]
+        lib = chk.library.get(name)
+        b_ms, b_by = chk.bounds[name]
+        print(f"  time {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
+              f"({b_by})")
+    if chk.failures:
+        print("phase 6 FAILED:\n  " + "\n  ".join(chk.failures), file=sys.stderr)
+        return 1
+    del model, grid
+    torch.cuda.empty_cache()
+
+    # Phase 7: train, counted.
+    print("phase 7: train")
+    trainer, train_launches, problems = train_phase(aabbs, cent, cams, chk)
+    if problems:
+        print("phase 7 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+
+    # Phase 8: the training kernel path against the plain path.
+    print("phase 8: train step, kernel path vs plain path")
+    problems = path_vs_plain_phase(trainer)
+    if problems:
+        print("phase 8 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": chk.errors[name],
-         "ms": chk.times[name][0], "plain_ms": chk.times[name][1]}
+         "launches": serve_launches[name] + train_launches[name],
+         "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
+         "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
+         "plain_ms": chk.times[name][1], "bound_ms": chk.bounds[name][0],
+         "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name)}
         for name, (src, replaces) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

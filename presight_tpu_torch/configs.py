@@ -10,11 +10,18 @@ package pulls in jax, which the GPU machine does not have:
   * SkyFieldConfig        <- presight_tpu/fields/sky_field.py:22-28
   * HashEncodingConfig    <- presight_tpu/ops/hash_encoding.py:66-132
   * SpacingSpec           <- presight_tpu/ops/samplers.py:29-53
+  * OptimizerGroupConfig  <- presight_tpu/engine/optimizers.py:25-34
+  * DataManagerConfig     <- presight_tpu/data/datamanager.py:27-36 (the
+                             field the port honours)
+  * PipelineConfig        <- presight_tpu/engine/trainer.py:46-50 (no
+                             dataparser yet)
+  * TrainerConfig         <- presight_tpu/engine/trainer.py:53-107 (the
+                             fields the port honours)
 
-``tile_model_config`` builds a named tile's model config the way
-presight_tpu/configs/method_configs.py builds it (``_base_model``,
-``_tile_config``, ``_tpu_profile``). A parity test holds both against each
-other.
+``tile_model_config`` and ``tile_trainer_config`` build a named tile's
+configs the way presight_tpu/configs/method_configs.py builds them
+(``_base_model``, ``_optimizers``, ``_tile_config``, ``_tpu_profile``).
+Parity tests hold both against each other.
 """
 
 from __future__ import annotations
@@ -346,4 +353,74 @@ def tile_model_config(location: str, tile: int, depth: str, tpu: bool = True,
             dict(features_per_level=4, log2_hashmap_size=16, num_levels=2,
                  base_res=16, max_res=4096),
         ),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerGroupConfig:
+    lr: float = 1e-2
+    eps: float = 1e-15
+    weight_decay: float = 1e-5
+    max_steps: int = 100_000
+    warmup_steps: int = 10_000
+    milestones: Tuple[int, ...] = (25_000, 50_000, 75_000)
+    gamma: float = 0.33
+    warmup_start_factor: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class DataManagerConfig:
+    train_num_rays_per_batch: int = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    datamanager: DataManagerConfig = DataManagerConfig()
+    model: NerfactoNuscMSConfig = NerfactoNuscMSConfig()
+
+
+def _default_optimizers() -> Dict[str, OptimizerGroupConfig]:
+    return {"proposal_networks": OptimizerGroupConfig(), "fields": OptimizerGroupConfig()}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    max_num_iterations: int = 100_000
+    seed: int = 42
+    pipeline: PipelineConfig = PipelineConfig()
+    optimizers: Dict[str, OptimizerGroupConfig] = dataclasses.field(
+        default_factory=_default_optimizers)
+    microbatch_rays: int = 4096
+
+
+BS_SCALE = 8
+
+
+def tile_optimizers(max_iterations: int = MAX_ITERATIONS) -> Dict[str, OptimizerGroupConfig]:
+    """method_configs._optimizers: Adam 1e-2 (eps 1e-15, wd 1e-5), 10%
+    warmup, x0.33 at 25/50/75% of the run, for both groups."""
+    common = dict(
+        lr=1e-2, eps=1e-15, weight_decay=1e-5, max_steps=max_iterations,
+        warmup_steps=max_iterations // 10,
+        milestones=(max_iterations // 4, max_iterations // 2, max_iterations * 3 // 4),
+        gamma=0.33,
+    )
+    return {"proposal_networks": OptimizerGroupConfig(**common),
+            "fields": OptimizerGroupConfig(**common)}
+
+
+def tile_trainer_config(location: str, tile: int, depth: str, tpu: bool = True,
+                        max_iterations: int = MAX_ITERATIONS) -> TrainerConfig:
+    """Trainer config of ``{location}-{depth}-dino-c{tile}[-tpu]``, built as
+    method_configs.py's _tile_config and _tpu_profile build it: 65,536 rays
+    per step (8192 x BS_SCALE); microbatches of 1024 rays on the -tpu
+    profile, 4096 otherwise."""
+    return TrainerConfig(
+        max_num_iterations=max_iterations,
+        optimizers=tile_optimizers(max_iterations),
+        microbatch_rays=1024 if tpu else 4096,
+        pipeline=PipelineConfig(
+            datamanager=DataManagerConfig(train_num_rays_per_batch=8192 * BS_SCALE),
+            model=tile_model_config(location, tile, depth, tpu=tpu,
+                                    max_iterations=max_iterations)),
     )

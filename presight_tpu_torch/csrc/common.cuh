@@ -30,3 +30,50 @@ __device__ __forceinline__ float corner_weight(int c, float ox, float oy, float 
 static inline unsigned int ceil_div64(int64_t a, int64_t b) {
   return (unsigned int)((a + b - 1) / b);
 }
+
+// ---- hash grid (K1, K1b) ----
+
+constexpr int kMaxLevels = 16;
+
+struct LevelTables {
+  const float* table[kMaxLevels];  // level l's first row
+  float scale[kMaxLevels];         // level resolution (HashEncodingConfig.scalings)
+};
+
+__device__ __forceinline__ uint32_t raw_hash(uint32_t x, uint32_t y, uint32_t z) {
+  return (x * 1u) ^ (y * 2654435761u) ^ (z * 805459861u);
+}
+
+constexpr uint32_t kExpertPrime = 3674653429u;
+
+// ---- grouped MLP (K2, K2b) ----
+
+constexpr int kMaxLayers = 4;
+constexpr int kTile = 64;  // rows per CUDA block; divides the expert block
+
+struct MlpLayers {
+  const float* w[kMaxLayers];  // (E, in, out)
+  const float* b[kMaxLayers];  // (E, out)
+  int dim[kMaxLayers + 1];     // dim[0] = in, dim[l + 1] = out of layer l
+  int n_layers;
+  int stride;                  // padded activation row stride (odd)
+};
+
+// ---- per-ray warp scans (K3, K3b) ----
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float warp_inclusive_scan(float v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(kFullMask, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}

@@ -31,17 +31,6 @@
 
 namespace {
 
-constexpr int kMaxLevels = 16;
-
-struct LevelTables {
-  const float* table[kMaxLevels];  // level l's first row
-  float scale[kMaxLevels];         // level resolution (HashEncodingConfig.scalings)
-};
-
-__device__ __forceinline__ uint32_t raw_hash(uint32_t x, uint32_t y, uint32_t z) {
-  return (x * 1u) ^ (y * 2654435761u) ^ (z * 805459861u);
-}
-
 __global__ void hash_encode_fwd_kernel(const float* __restrict__ pos,
                                        const int32_t* __restrict__ expert,
                                        LevelTables t, int64_t n, int L, int F,
@@ -83,7 +72,7 @@ __global__ void hash_encode_fwd_kernel(const float* __restrict__ pos,
     uint32_t h = raw_hash(ix, iy, iz);
     int64_t base = 0;
     if (storage == 2) {
-      if (expert != nullptr) h ^= (uint32_t)e * 3674653429u;
+      if (expert != nullptr) h ^= (uint32_t)e * kExpertPrime;
     } else {
       base = (int64_t)e * expert_stride_rows;
     }

@@ -32,19 +32,9 @@
 
 namespace {
 
-constexpr int kMaxLayers = 4;
-constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // register tile: rows x outputs per thread
 constexpr int kCols = 4;
-
-struct MlpLayers {
-  const float* w[kMaxLayers];  // (E, in, out)
-  const float* b[kMaxLayers];  // (E, out)
-  int dim[kMaxLayers + 1];     // dim[0] = in, dim[l + 1] = out of layer l
-  int n_layers;
-  int stride;                  // padded activation row stride (odd)
-};
 
 __global__ void __launch_bounds__(kThreads)
 mlp_blocks_fwd_kernel(const float* __restrict__ h, const int32_t* __restrict__ block_expert,

@@ -37,22 +37,6 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_inclusive_scan(float v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += u;
-  }
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 __device__ __forceinline__ float nan_to_num(float w) {
   if (isnan(w)) return 0.0f;
@@ -85,13 +69,13 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
     const bool valid = s < S;
     const float dd = valid ? __fmul_rn(deltas[base + s], density[base + s]) : 0.0f;
     const float inc = warp_inclusive_scan(dd, lane);
-    float excl = __shfl_up_sync(kFull, inc, 1);
+    float excl = __shfl_up_sync(kFullMask, inc, 1);
     if (lane == 0) excl = 0.0f;
     const float alpha = __fsub_rn(1.0f, expf(-dd));
     const float w = valid ? nan_to_num(__fmul_rn(alpha, expf(-(carry + excl)))) : 0.0f;
-    carry += __shfl_sync(kFull, inc, 31);
+    carry += __shfl_sync(kFullMask, inc, 31);
     const float cum = wcarry + warp_inclusive_scan(w, lane);
-    wcarry = __shfl_sync(kFull, cum, 31);
+    wcarry = __shfl_sync(kFullMask, cum, 31);
     if (valid) {
       weights[base + s] = w;
       w_s[s] = w;
@@ -100,7 +84,7 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
       }
     }
     if (steps != nullptr) {
-      below += __popc(__ballot_sync(kFull, valid && cum < threshold));
+      below += __popc(__ballot_sync(kFullMask, valid && cum < threshold));
       wsum += w;
       if (valid) wtsum += w * steps[base + s];
     }

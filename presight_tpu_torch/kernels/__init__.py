@@ -1,11 +1,11 @@
 """Build, load and count the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled by one ``nvcc`` call for sm_90a into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), keyed on a hash of the sources and placed under
-``<repo>/build/kernels/``. The library is built at first use and loaded with
-ctypes; nothing here runs when the module is imported, so machines without
-nvcc (and the CPU tests) import it freely.
+Each source is compiled for sm_90a by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), keyed on a hash
+of the sources and placed under ``<repo>/build/kernels/``. The library is
+built at first use and loaded with ctypes; nothing here runs when the module
+is imported, so machines without nvcc (and the CPU tests) import it freely.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
@@ -28,10 +28,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC"]
 
 KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
-           "prop_grid_density_fwd")
+           "prop_grid_density_fwd", "hash_encode_bwd", "mlp_blocks_bwd",
+           "volume_render_bwd", "sorted_accum")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -51,6 +52,19 @@ _ARGTYPES = {
                           _P, _P, _P, _P, _P, _P],
     # pos, centroids, aabbs, grid, n, E, G, out, stream
     "prop_grid_density_fwd": [_P, _P, _P, _P, _I64, _I, _I, _P, _P],
+    # pos, expert, grad, scales (host array), n, L, F, log2T, storage, keys,
+    # rows, stream
+    "hash_encode_bwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
+    # h, block_expert, dout, n, rows_per_group, E, weights, biases (host
+    # arrays), dims (host array), n_layers, sigmoid, dx, dweights, dbiases
+    # (host arrays), partial, stream
+    "mlp_blocks_bwd": [_P, _P, _P, _I64, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # deltas, density, steps, clip, payload, payload_index, weights, g_w,
+    # g_acc, g_exp, g_comp, R, S, C, d_density, d_payload, stream
+    "volume_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                          _P, _P, _P],
+    # keys, rows, n, C, out, scratch, flags, stream
+    "sorted_accum": [_P, _P, _I64, _I, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -85,20 +99,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library unless the library for
-    these exact sources exists. Returns its path; the compiler's report
-    (registers, shared memory, spills) goes to ``<library>.log``."""
+    """Compile each ``csrc/*.cu`` in its own nvcc process, all at once, and
+    link the objects into one shared library, unless the library for these
+    exact sources exists. Returns its path; the compiler's reports
+    (registers, shared memory, spills) go to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src, proc in zip(sorted(CSRC.glob("*.cu")), procs):
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text[-3000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-3000:]}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

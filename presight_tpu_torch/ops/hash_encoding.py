@@ -1,10 +1,19 @@
 """Multi-resolution hash-grid encoding (presight_tpu/ops/hash_encoding.py).
 
-``hash_encode`` is the wrapper of kernel K1 (csrc/hash_encode.cu): on a CUDA
-tensor it launches the kernel, on a CPU tensor it runs ``hash_encode_plain``,
-the PyTorch version of the same function. The plain version hashes in int64
-with each prime product masked to 32 bits, which equals the reference's
-uint32 wraparound modulo the table size.
+``hash_encode`` is a ``torch.autograd.Function`` over the hash tables. Its
+forward is kernel K1 (csrc/hash_encode.cu); its backward is kernel K1b
+(csrc/hash_encode_bwd.cu), which writes one cotangent row and key per
+(sample, level) (per corner for 'corner'), then a stable ``torch.sort`` of
+the keys, a gather of the rows into that order, and kernel K5
+(csrc/sorted_accum.cu), which sums each run of equal keys into the dense
+table gradient -- the sort-then-reduce design of the JAX package's
+``_gather_rows_sorted_grad``. Each kernel's wrapper launches it on CUDA
+tensors and runs its plain PyTorch version on CPU tensors. The plain
+versions hash in int64 with each prime product masked to 32 bits, which
+equals the reference's uint32 wraparound modulo the table size.
+
+Positions get no gradient (the sample bins are stop-gradient and camera
+optimisation is off): the Function raises if they require one.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ _CORNER_BITS = np.array(
 )
 
 _STORAGES = {"corner": 0, "cell": 1, "shared": 2}
+_SORTED_ACCUM_SEGMENT = 64  # rows per segment of K5 (kSeg in csrc/sorted_accum.cu)
 
 Table = Union[torch.Tensor, List[torch.Tensor]]
 
@@ -128,8 +138,8 @@ def hash_encode_plain(table: Table, positions: torch.Tensor, config: HashEncodin
     return out.reshape(*out.shape[:-2], L * F)
 
 
-def hash_encode(table: Table, positions: torch.Tensor, config: HashEncodingConfig,
-                expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+def hash_encode_fwd(table: Table, positions: torch.Tensor, config: HashEncodingConfig,
+                    expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Wrapper of K1: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors."""
     if positions.device.type == "cpu":
@@ -174,3 +184,156 @@ def hash_encode(table: Table, positions: torch.Tensor, config: HashEncodingConfi
     kernels.check("hash_encode_fwd", code)
     kernels.LAUNCHES["hash_encode_fwd"] += 1
     return out.reshape(*shape, L * F)
+
+
+def hash_keys(positions: torch.Tensor, config: HashEncodingConfig,
+              expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The table row each (sample, level) reads -- each (sample, level,
+    corner) for 'corner' -- as a flat int64 key: its row in the
+    (E * L * T, row) table, or in the flat (L * T, 8F) 'shared' gradient.
+    positions (n, 3) -> (n, L) or (n, L, 8)."""
+    L, T = config.num_levels, config.table_size
+    scaled, scaled_f, _ = _scaled(positions, config)
+    fl = scaled_f.to(torch.int64)
+    level_offset = torch.arange(L, device=positions.device, dtype=torch.int64) * T
+    expert_offset = 0 if expert_ids is None else expert_ids.to(torch.int64) * (L * T)
+    if config.storage == "corner":
+        ce = torch.ceil(scaled).to(torch.int64)
+        bits = torch.as_tensor(_CORNER_BITS, device=positions.device) == 1
+        corners = torch.where(bits, ce[..., None, :], fl[..., None, :])  # (n, L, 8, 3)
+        keys = _hash_corners(corners, T) + level_offset[:, None]
+        return keys if expert_ids is None else keys + expert_offset[:, None, None]
+    h = _raw_hash(fl)  # (n, L)
+    if config.storage == "shared":
+        if expert_ids is not None:
+            h = h ^ ((expert_ids.to(torch.int64) * _EXPERT_PRIME) & _U32)[:, None]
+        return (h & (T - 1)) + level_offset
+    keys = (h & (T - 1)) + level_offset
+    return keys if expert_ids is None else keys + expert_offset[:, None]
+
+
+def hash_encode_bwd_plain(positions: torch.Tensor, config: HashEncodingConfig,
+                          expert_ids: Optional[torch.Tensor], grad: torch.Tensor):
+    """Plain version of K1b. positions (n, 3), grad (n, L * F) -> (keys
+    int32, rows): the table-gradient contribution w_c * g[level] of every
+    corner, keyed by ``hash_keys``. 'shared' and 'cell' give one 8F row per
+    (sample, level), 'corner' one F row per (sample, level, corner)."""
+    L, F = config.num_levels, config.features_per_level
+    n = positions.shape[0]
+    w = trilerp_weights(_scaled(positions, config)[2])  # (n, L, 8)
+    rows = w[..., None] * grad.reshape(n, L, F)[:, :, None, :]  # (n, L, 8, F)
+    if config.storage != "corner":
+        rows = rows.reshape(n * L, 8 * F)
+    keys = hash_keys(positions, config, expert_ids)
+    return keys.reshape(-1).to(torch.int32), rows.reshape(keys.numel(), -1)
+
+
+def hash_encode_bwd(positions: torch.Tensor, config: HashEncodingConfig,
+                    expert_ids: Optional[torch.Tensor], grad: torch.Tensor):
+    """Wrapper of K1b (see hash_encode_bwd_plain for the contract)."""
+    if positions.device.type == "cpu":
+        return hash_encode_bwd_plain(positions, config, expert_ids, grad)
+    L, F = config.num_levels, config.features_per_level
+    n = positions.shape[0]
+    if positions.shape != (n, 3) or grad.shape != (n, L * F):
+        raise ValueError("hash_encode_bwd: positions (n, 3) and grad (n, L * F) expected")
+    if positions.dtype != torch.float32 or grad.dtype != torch.float32:
+        raise TypeError("hash_encode_bwd: expected float32 positions and gradient")
+    extra = []
+    if expert_ids is not None:
+        if expert_ids.dtype != torch.int32 or expert_ids.shape != (n,):
+            raise TypeError("hash_encode_bwd: expert ids must be int32, one per position")
+        extra = [expert_ids]
+    kernels.require_cuda("hash_encode_bwd", positions, grad, *extra)
+    corner = config.storage == "corner"
+    n_keys = n * L * (8 if corner else 1)
+    keys = torch.empty((n_keys,), dtype=torch.int32, device=positions.device)
+    rows = torch.empty((n_keys, F if corner else 8 * F), dtype=torch.float32,
+                       device=positions.device)
+    scales = (ctypes.c_float * L)(*config.scalings().tolist())
+    code = kernels.lib().hash_encode_bwd(
+        positions.data_ptr(), kernels.ptr(expert_ids), grad.data_ptr(), scales, n, L, F,
+        config.log2_hashmap_size, _STORAGES[config.storage], keys.data_ptr(), rows.data_ptr(),
+        kernels.stream())
+    kernels.check("hash_encode_bwd", code)
+    kernels.LAUNCHES["hash_encode_bwd"] += 1
+    return keys, rows
+
+
+def sorted_accum_plain(keys: torch.Tensor, rows: torch.Tensor, out: torch.Tensor) -> None:
+    """Plain version of K5: out[key] += sum of each run of equal keys, over
+    rows sorted by key (a segment sum over sorted keys)."""
+    uniq, counts = torch.unique_consecutive(keys, return_counts=True)
+    out[uniq.long()] += torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+
+
+def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: torch.Tensor) -> None:
+    """Wrapper of K5: accumulate the runs of ``keys`` (int32, sorted
+    ascending) over ``rows`` (n, C) into ``out`` (T, C), in place."""
+    if rows.device.type == "cpu":
+        return sorted_accum_plain(keys, rows, out)
+    n = keys.shape[0]
+    if keys.dtype != torch.int32 or rows.dtype != torch.float32 or out.dtype != torch.float32:
+        raise TypeError("sorted_accum: int32 keys and float32 rows and output expected")
+    if rows.dim() != 2 or rows.shape[0] != n or out.dim() != 2 or out.shape[1] != rows.shape[1]:
+        raise ValueError("sorted_accum: keys (n,), rows (n, C) and out (T, C) expected")
+    kernels.require_cuda("sorted_accum", keys, rows, out)
+    num_seg = -(-n // _SORTED_ACCUM_SEGMENT)
+    scratch = torch.empty((2 * num_seg, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    flags = torch.empty((num_seg,), dtype=torch.uint8, device=rows.device)
+    code = kernels.lib().sorted_accum(keys.data_ptr(), rows.data_ptr(), n, rows.shape[1],
+                                      out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+                                      kernels.stream())
+    kernels.check("sorted_accum", code)
+    kernels.LAUNCHES["sorted_accum"] += 1
+
+
+def table_grad(positions: torch.Tensor, config: HashEncodingConfig,
+               expert_ids: Optional[torch.Tensor], grad: torch.Tensor,
+               num_rows: int) -> torch.Tensor:
+    """Dense table gradient (num_rows, row width): K1b's (key, row) pairs,
+    a stable sort of the keys, the rows gathered into that order, K5."""
+    keys, rows = hash_encode_bwd(positions, config, expert_ids, grad)
+    keys, order = torch.sort(keys, stable=True)
+    out = torch.zeros((num_rows, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    sorted_accum(keys, rows.index_select(0, order), out)
+    return out
+
+
+class _HashEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, positions, expert_ids, config, *tables):
+        table = list(tables) if config.storage == "shared" else tables[0]
+        ctx.config = config
+        ctx.num_rows = sum(t.shape[0] for t in tables)
+        ctx.save_for_backward(positions, expert_ids)
+        return hash_encode_fwd(table, positions, config, expert_ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        positions, expert_ids = ctx.saved_tensors
+        config = ctx.config
+        flat = table_grad(positions, config, expert_ids, grad.contiguous(), ctx.num_rows)
+        if config.storage == "shared":
+            grads = flat.split(config.table_size)
+        else:
+            grads = (flat,)
+        return (None, None, None, *grads)
+
+
+def hash_encode(table: Table, positions: torch.Tensor, config: HashEncodingConfig,
+                expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hash lookup + trilinear blend, positions (..., 3) in [0, 1] ->
+    (..., L * F), differentiable in the tables (K1 forward; K1b, sort and K5
+    backward)."""
+    if positions.requires_grad:
+        raise ValueError("hash_encode: positions carry no gradient on this path")
+    shape = positions.shape[:-1]
+    pos = positions.reshape(-1, 3)
+    eids = None if expert_ids is None else expert_ids.reshape(-1)
+    tables = list(table) if config.storage == "shared" else [table]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        out = _HashEncode.apply(pos, eids, config, *tables)
+    else:
+        out = hash_encode_fwd(tables if config.storage == "shared" else table, pos, config, eids)
+    return out.reshape(*shape, out.shape[-1])

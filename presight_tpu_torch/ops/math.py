@@ -7,13 +7,47 @@ are ``torch.searchsorted`` and ``torch.gather``.
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+Bound = Optional[Union[float, torch.Tensor]]
+
+
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
 
 
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Forward of the reference's trunc_exp (the clamped backward belongs to
-    training)."""
-    return torch.exp(x)
+    """exp(x) with the backward g * exp(clamp(x, -15, 15)), so a large
+    density logit cannot blow up its gradient."""
+    return _TruncExp.apply(x)
+
+
+def clip(x: torch.Tensor, lo: Bound = None, hi: Bound = None) -> torch.Tensor:
+    """jnp.clip as JAX differentiates it: min(max(x, lo), hi), so at a tie
+    with a bound half the gradient goes to x (torch.clamp passes all of
+    it). Use it wherever a clipped value carries a gradient."""
+    if lo is not None:
+        x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+    return x
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """sum(mask * values) / sum(mask), mask broadcast against values: the
+    shape-stable form of ``values[mask].mean()``."""
+    mask_b = torch.broadcast_to(mask.to(values.dtype), values.shape)
+    return torch.sum(values * mask_b) / torch.clamp(torch.sum(mask_b), min=eps)
 
 
 def contract_linf(x: torch.Tensor) -> torch.Tensor:

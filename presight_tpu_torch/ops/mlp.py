@@ -1,9 +1,12 @@
 """Small MLPs, single-expert and expert-grouped (presight_tpu/ops/mlp.py).
 
 Weights keep the JAX layout: W (in, out) or stacked (E, in, out), b (out,)
-or (E, out). ``apply_mlp_blocks`` and ``apply_mlp`` are the wrappers of
-kernel K2 (csrc/mlp_blocks.cu): on CUDA tensors they launch the fused
-kernel, on CPU tensors they run the plain PyTorch version.
+or (E, out). ``apply_mlp_blocks`` and ``apply_mlp`` run a
+``torch.autograd.Function`` whose forward is kernel K2 (csrc/mlp_blocks.cu)
+and whose backward is kernel K2b (csrc/mlp_blocks_bwd.cu): dX, and dW, db
+per expert, with the ReLU masks and the sigmoid epilogue differentiated
+inside. On CUDA tensors the kernels launch, on CPU tensors the plain
+PyTorch versions run (the backward's formula written out, not autograd).
 """
 
 from __future__ import annotations
@@ -110,30 +113,37 @@ def apply_mlp_blocks_plain(params: Params, h: torch.Tensor,
     return h
 
 
-def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
-                sigmoid: bool) -> torch.Tensor:
+def _check_mlp(name: str, params: Params, h: torch.Tensor,
+               block_expert: Optional[torch.Tensor], *extra: torch.Tensor):
+    """Validate a K2/K2b launch; returns (dims, rows_per_group)."""
     n = h.shape[0]
     if not 1 <= len(params) <= _MAX_LAYERS:
-        raise ValueError(f"mlp_blocks_fwd: 1..{_MAX_LAYERS} layers, got {len(params)}")
+        raise ValueError(f"{name}: 1..{_MAX_LAYERS} layers, got {len(params)}")
     dims = [h.shape[1]]
     for w, b in params:
-        if w.shape[-2] != dims[-1] or b.shape[-1] != w.shape[-1]:
-            raise ValueError("mlp_blocks_fwd: layer shapes do not chain")
+        if w.dim() != 3 or w.shape[-2] != dims[-1] or b.shape[-1] != w.shape[-1]:
+            raise ValueError(f"{name}: layer shapes do not chain")
         dims.append(w.shape[-1])
-    tensors = [h] + [t for wb in params for t in wb]
+    tensors = [h, *extra] + [t for wb in params for t in wb]
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError("mlp_blocks_fwd: expected float32 activations and weights")
+            raise TypeError(f"{name}: expected float32 activations and weights")
     rows_per_group = 0
     if block_expert is not None:
         if block_expert.dtype != torch.int32 or n % block_expert.shape[0]:
-            raise ValueError("mlp_blocks_fwd: int32 block_expert must divide the rows")
+            raise ValueError(f"{name}: int32 block_expert must divide the rows")
         rows_per_group = n // block_expert.shape[0]
         if rows_per_group % _TILE:
-            raise ValueError(f"mlp_blocks_fwd: expert block {rows_per_group} not a "
-                             f"multiple of {_TILE}")
+            raise ValueError(f"{name}: expert block {rows_per_group} not a multiple of {_TILE}")
         tensors.append(block_expert)
-    kernels.require_cuda("mlp_blocks_fwd", *tensors)
+    kernels.require_cuda(name, *tensors)
+    return dims, rows_per_group
+
+
+def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
+                sigmoid: bool) -> torch.Tensor:
+    n = h.shape[0]
+    dims, rows_per_group = _check_mlp("mlp_blocks_fwd", params, h, block_expert)
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=h.device)
     code = kernels.lib().mlp_blocks_fwd(
         h.data_ptr(), kernels.ptr(block_expert), n, rows_per_group,
@@ -146,22 +156,117 @@ def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Te
     return out
 
 
-def apply_mlp_blocks(params: Params, h: torch.Tensor, block_expert: torch.Tensor,
-                     sigmoid: bool = False) -> torch.Tensor:
-    """Wrapper of K2 on an already block-padded batch (n_pad, in) with
-    stacked (E, in, out) weights; the expert block is n_pad / num_blocks."""
+def mlp_blocks_fwd(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
+                   sigmoid: bool = False) -> torch.Tensor:
+    """Wrapper of K2 on stacked (E, in, out) weights: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
     if h.device.type == "cpu":
         return apply_mlp_blocks_plain(params, h, block_expert, sigmoid)
     return _mlp_kernel(params, h, block_expert, sigmoid)
 
 
+def mlp_blocks_bwd_plain(params: Params, h: torch.Tensor,
+                         block_expert: Optional[torch.Tensor], sigmoid: bool,
+                         grad: torch.Tensor):
+    """Plain version of K2b on stacked (E, in, out) weights: recompute the
+    forward, then per layer from the last dPre = dAct * relu'(act) (and
+    sigmoid' on the output), dW = act^T dPre and db = sum dPre per block,
+    summed per expert, and dAct = dPre W^T. Returns (dX, [(dW, db), ...])."""
+    n_layers = len(params)
+    num_blocks = 1 if block_expert is None else block_expert.shape[0]
+    be = torch.zeros((1,), dtype=torch.long, device=h.device) if block_expert is None \
+        else block_expert.long()
+    acts = [h]
+    x = h
+    for i, (w, b) in enumerate(params):
+        xb = x.reshape(num_blocks, -1, x.shape[1])
+        x = (torch.bmm(xb, w[be]) + b[be][:, None, :]).reshape(x.shape[0], -1)
+        if i < n_layers - 1:
+            x = torch.relu(x)
+        acts.append(x)
+    d = grad
+    if sigmoid:
+        s = torch.sigmoid(acts[-1])
+        d = d * (s * (1.0 - s))
+    grads = []
+    for i in range(n_layers - 1, -1, -1):
+        w, b = params[i]
+        if i < n_layers - 1:
+            d = torch.where(acts[i + 1] > 0, d, torch.zeros_like(d))
+        a = acts[i].reshape(num_blocks, -1, acts[i].shape[1])
+        db_ = d.reshape(num_blocks, -1, d.shape[1])
+        dw = torch.zeros_like(w).index_add_(0, be, torch.bmm(a.transpose(1, 2), db_))
+        dbias = torch.zeros_like(b).index_add_(0, be, db_.sum(dim=1))
+        grads.insert(0, (dw, dbias))
+        d = torch.bmm(db_, w[be].transpose(1, 2)).reshape(d.shape[0], -1)
+    return d, grads
+
+
+def mlp_blocks_bwd(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
+                   sigmoid: bool, grad: torch.Tensor):
+    """Wrapper of K2b (see mlp_blocks_bwd_plain for the contract)."""
+    if h.device.type == "cpu":
+        return mlp_blocks_bwd_plain(params, h, block_expert, sigmoid, grad)
+    n = h.shape[0]
+    dims, rows_per_group = _check_mlp("mlp_blocks_bwd", params, h, block_expert, grad)
+    if grad.shape != (n, dims[-1]):
+        raise ValueError("mlp_blocks_bwd: grad must be (n, out)")
+    num_experts = params[0][0].shape[0]
+    dx = torch.empty_like(h)
+    grads = [(torch.empty_like(w), torch.empty_like(b)) for w, b in params]
+    partial_size = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    partial = torch.empty((-(-n // _TILE), partial_size), dtype=torch.float32, device=h.device)
+    code = kernels.lib().mlp_blocks_bwd(
+        h.data_ptr(), kernels.ptr(block_expert), grad.data_ptr(), n, rows_per_group,
+        num_experts, kernels.host_ptrs([w.data_ptr() for w, _ in params]),
+        kernels.host_ptrs([b.data_ptr() for _, b in params]),
+        (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid), dx.data_ptr(),
+        kernels.host_ptrs([dw.data_ptr() for dw, _ in grads]),
+        kernels.host_ptrs([db.data_ptr() for _, db in grads]), partial.data_ptr(),
+        kernels.stream())
+    kernels.check("mlp_blocks_bwd", code)
+    kernels.LAUNCHES["mlp_blocks_bwd"] += 1
+    return dx, grads
+
+
+def _apply(h: torch.Tensor, block_expert: Optional[torch.Tensor], sigmoid: bool,
+           flat: List[torch.Tensor]) -> torch.Tensor:
+    """K2 through the autograd Function when a gradient is wanted, else
+    straight through K2's wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, *flat)):
+        return _MlpBlocks.apply(h, block_expert, sigmoid, *flat)
+    return mlp_blocks_fwd(list(zip(flat[0::2], flat[1::2])), h, block_expert, sigmoid)
+
+
+class _MlpBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, block_expert, sigmoid, *flat):
+        params = list(zip(flat[0::2], flat[1::2]))
+        ctx.sigmoid = sigmoid
+        ctx.save_for_backward(h, block_expert, *flat)
+        return mlp_blocks_fwd(params, h, block_expert, sigmoid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, block_expert, *flat = ctx.saved_tensors
+        params = list(zip(flat[0::2], flat[1::2]))
+        dx, grads = mlp_blocks_bwd(params, h, block_expert, ctx.sigmoid, grad.contiguous())
+        return (dx if ctx.needs_input_grad[0] else None, None, None,
+                *[t for pair in grads for t in pair])
+
+
+def apply_mlp_blocks(params: Params, h: torch.Tensor, block_expert: torch.Tensor,
+                     sigmoid: bool = False) -> torch.Tensor:
+    """Expert-grouped MLP on an already block-padded batch (n_pad, in) with
+    stacked (E, in, out) weights; the expert block is n_pad / num_blocks.
+    Differentiable in h and the weights (K2 forward, K2b backward)."""
+    return _apply(h, block_expert, sigmoid, [t for wb in params for t in wb])
+
+
 def apply_mlp(params: Params, x: torch.Tensor, sigmoid: bool = False) -> torch.Tensor:
-    """Wrapper of K2 for one unstacked MLP: ReLU between layers, optional
-    sigmoid."""
-    if x.device.type == "cpu":
-        return apply_mlp_blocks_plain(params, x, None, sigmoid)
-    return _mlp_kernel([(w.unsqueeze(0), b.unsqueeze(0)) for w, b in params], x, None,
-                       sigmoid)
+    """One unstacked MLP (ReLU between layers, optional sigmoid) through
+    K2/K2b as a single expert."""
+    return _apply(x, None, sigmoid, [t for w, b in params for t in (w.unsqueeze(0), b.unsqueeze(0))])
 
 
 def apply_mlp_grouped(params: Params, x: torch.Tensor, group_sizes: torch.Tensor,

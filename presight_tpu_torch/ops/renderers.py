@@ -1,11 +1,16 @@
 """Volume rendering (presight_tpu/ops/renderers.py, ops/rays.py::get_weights
 and the fused composite of models/nerfacto_ms.py::forward).
 
-``volume_render`` is the wrapper of kernel K3 (csrc/volume_render.cu): from
-per-sample deltas and densities it gives the weights and, on request, the
-accumulation, the median and expected depths and the weighted composite of
-a payload. On CUDA tensors it launches the kernel, on CPU tensors it runs
-``volume_render_plain``, built from the plain functions below.
+``volume_render`` is a ``torch.autograd.Function``: from per-sample deltas
+and densities it gives the weights and, on request, the accumulation, the
+median and expected depths and the weighted composite of a payload. Its
+forward is kernel K3 (csrc/volume_render.cu), its backward kernel K3b
+(csrc/volume_render_bwd.cu), which takes the gradients of the weights,
+accumulation, expected depth and composite to the densities and payload
+rows (the median depth is stop-gradient). On CUDA tensors the kernels
+launch, on CPU tensors the plain versions run: ``volume_render_plain``,
+built from the plain functions below, and ``volume_render_bwd_plain``, the
+backward's formula written out.
 """
 
 from __future__ import annotations
@@ -15,7 +20,10 @@ from typing import Dict, Optional
 import torch
 
 from .. import kernels
+from .math import clip as clip_
 from .rays import RaySamples, get_weights
+
+RENDER_KEYS = ("weights", "accumulation", "depth", "expected_depth", "composite")
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:
@@ -35,7 +43,7 @@ def _depth_median(weights: torch.Tensor, steps: torch.Tensor,
 def _depth_expected(weights: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
     depth = torch.sum(weights * steps, dim=-1) / (torch.sum(weights, dim=-1) + 1e-10)
     lo, hi = torch.aminmax(steps)
-    return torch.clamp(depth, lo, hi)
+    return clip_(depth, lo, hi)
 
 
 def render_depth_median(weights: torch.Tensor, ray_samples: RaySamples,
@@ -73,11 +81,11 @@ def volume_render_plain(deltas: torch.Tensor, density: torch.Tensor,
     return out
 
 
-def volume_render(deltas: torch.Tensor, density: torch.Tensor,
-                  steps: Optional[torch.Tensor] = None,
-                  payload: Optional[torch.Tensor] = None,
-                  payload_index: Optional[torch.Tensor] = None,
-                  threshold: float = 0.5) -> Dict[str, torch.Tensor]:
+def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
+                      steps: Optional[torch.Tensor] = None,
+                      payload: Optional[torch.Tensor] = None,
+                      payload_index: Optional[torch.Tensor] = None,
+                      threshold: float = 0.5) -> Dict[str, torch.Tensor]:
     """Wrapper of K3 (see volume_render_plain for the contract)."""
     if deltas.device.type == "cpu":
         return volume_render_plain(deltas, density, steps, payload, payload_index,
@@ -124,4 +132,134 @@ def volume_render(deltas: torch.Tensor, density: torch.Tensor,
         kernels.ptr(out.get("composite")), kernels.stream())
     kernels.check("volume_render_fwd", code)
     kernels.LAUNCHES["volume_render_fwd"] += 1
+    return out
+
+
+def _clip_grad(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """d/dx min(max(x, lo), hi) as JAX differentiates it: 0.5 at a tie."""
+    a = (x > lo).to(x.dtype) + 0.5 * (x == lo).to(x.dtype)
+    m = torch.maximum(x, lo)
+    return a * ((m < hi).to(x.dtype) + 0.5 * (m == hi).to(x.dtype))
+
+
+def volume_render_bwd_plain(deltas: torch.Tensor, density: torch.Tensor,
+                            steps: Optional[torch.Tensor], payload: Optional[torch.Tensor],
+                            payload_index: Optional[torch.Tensor], weights: torch.Tensor,
+                            g_weights: torch.Tensor, g_acc: Optional[torch.Tensor],
+                            g_expected: Optional[torch.Tensor],
+                            g_composite: Optional[torch.Tensor]):
+    """Plain version of K3b. With dd = delta sigma, alpha = 1 - exp(-dd),
+    T_s = exp(-sum_{j<s} dd_j): the gradient of each weight gathers
+    dL/dw, dL/dacc, dL/dcomposite . payload row and the expected depth's
+    (t_s / b - a / b^2) times jnp.clip's derivative (a = sum w t,
+    b = sum w + 1e-10); it passes where alpha T is finite; then
+    dsigma_j = delta_j (gw_j T_j exp(-dd_j) - sum_{s>j} gw_s alpha_s T_s)
+    and dpayload[row(s)] = w_s dL/dcomposite. Returns (d density, d payload
+    or None)."""
+    dd = deltas * density
+    e_dd = torch.exp(-dd)
+    alpha = 1.0 - e_dd
+    csum = torch.cumsum(dd[..., :-1], dim=-1)
+    trans = torch.exp(-torch.cat([torch.zeros_like(dd[..., :1]), csum], dim=-1))
+    gw = g_weights
+    if steps is not None:
+        wsum = torch.sum(weights, dim=-1)
+        a = torch.sum(weights * steps, dim=-1)
+        b = wsum + 1e-10
+        lo, hi = torch.aminmax(steps)
+        ge = g_expected * _clip_grad(a / b, lo, hi)
+        gw = gw + g_acc[:, None] + (ge[:, None] * steps / b[:, None] - (ge * a / (b * b))[:, None])
+    d_payload = None
+    if payload is not None:
+        r, s = weights.shape
+        index = (torch.arange(r * s, device=deltas.device) if payload_index is None
+                 else payload_index.long())
+        rows = payload[index].reshape(r, s, -1)
+        gw = gw + torch.sum(rows * g_composite[:, None, :], dim=-1)
+        d_payload = torch.zeros_like(payload)
+        d_payload[index] = (weights[..., None] * g_composite[:, None, :]).reshape(r * s, -1)
+    gw = torch.where(torch.isfinite(alpha * trans), gw, torch.zeros_like(gw))
+    q = gw * alpha * trans
+    after = torch.flip(torch.cumsum(torch.flip(q[..., 1:], [-1]), dim=-1), [-1])
+    after = torch.cat([after, torch.zeros_like(q[..., :1])], dim=-1)
+    return deltas * (gw * trans * e_dd - after), d_payload
+
+
+def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
+                      steps: Optional[torch.Tensor], payload: Optional[torch.Tensor],
+                      payload_index: Optional[torch.Tensor], weights: torch.Tensor,
+                      g_weights: torch.Tensor, g_acc: Optional[torch.Tensor],
+                      g_expected: Optional[torch.Tensor], g_composite: Optional[torch.Tensor]):
+    """Wrapper of K3b (see volume_render_bwd_plain for the contract)."""
+    if deltas.device.type == "cpu":
+        return volume_render_bwd_plain(deltas, density, steps, payload, payload_index, weights,
+                                       g_weights, g_acc, g_expected, g_composite)
+    r, s = deltas.shape
+    tensors = [deltas, density, weights, g_weights]
+    if steps is not None:
+        tensors += [steps, g_acc, g_expected]
+    c = 0
+    if payload is not None:
+        c = payload.shape[1]
+        tensors += [payload, g_composite]
+        if payload_index is not None:
+            if payload_index.dtype != torch.int32:
+                raise ValueError("volume_render_bwd: payload_index must be int32")
+            tensors.append(payload_index)
+    for t in tensors:
+        if t is not payload_index and t.dtype != torch.float32:
+            raise TypeError("volume_render_bwd: expected float32 inputs")
+    kernels.require_cuda("volume_render_bwd", *tensors)
+    clip = None if steps is None else torch.stack(torch.aminmax(steps))
+    d_density = torch.empty_like(density)
+    d_payload = None if payload is None else torch.zeros_like(payload)
+    code = kernels.lib().volume_render_bwd(
+        deltas.data_ptr(), density.data_ptr(), kernels.ptr(steps), kernels.ptr(clip),
+        kernels.ptr(payload), kernels.ptr(payload_index), weights.data_ptr(),
+        g_weights.data_ptr(), kernels.ptr(g_acc), kernels.ptr(g_expected),
+        kernels.ptr(g_composite), r, s, c, d_density.data_ptr(), kernels.ptr(d_payload),
+        kernels.stream())
+    kernels.check("volume_render_bwd", code)
+    kernels.LAUNCHES["volume_render_bwd"] += 1
+    return d_density, d_payload
+
+
+class _VolumeRender(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, deltas, density, steps, payload, payload_index, threshold):
+        out = volume_render_fwd(deltas, density, steps, payload, payload_index, threshold)
+        ctx.save_for_backward(deltas, density, steps, payload, payload_index, out["weights"])
+        outs = tuple(out[key] if key in out else deltas.new_empty((0,)) for key in RENDER_KEYS)
+        ctx.mark_non_differentiable(outs[2])
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_weights, g_acc, _g_depth, g_expected, g_composite):
+        deltas, density, steps, payload, payload_index, weights = ctx.saved_tensors
+        with_steps, with_payload = steps is not None, payload is not None
+        d_density, d_payload = volume_render_bwd(
+            deltas, density, steps, payload, payload_index, weights, g_weights.contiguous(),
+            g_acc.contiguous() if with_steps else None,
+            g_expected.contiguous() if with_steps else None,
+            g_composite.contiguous() if with_payload else None)
+        return None, d_density, None, d_payload, None, None
+
+
+def volume_render(deltas: torch.Tensor, density: torch.Tensor,
+                  steps: Optional[torch.Tensor] = None,
+                  payload: Optional[torch.Tensor] = None,
+                  payload_index: Optional[torch.Tensor] = None,
+                  threshold: float = 0.5) -> Dict[str, torch.Tensor]:
+    """Weights (and, with steps, accumulation, median and expected depth;
+    with a payload, the composite), differentiable in density and payload
+    (K3 forward, K3b backward). See volume_render_plain for the contract."""
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in (density, payload))):
+        return volume_render_fwd(deltas, density, steps, payload, payload_index, threshold)
+    outs = _VolumeRender.apply(deltas, density, steps, payload, payload_index, threshold)
+    out = {"weights": outs[0]}
+    if steps is not None:
+        out.update(accumulation=outs[1], depth=outs[2], expected_depth=outs[3])
+    if payload is not None:
+        out["composite"] = outs[4]
     return out

@@ -4,6 +4,8 @@ inverse-CDF resampling, and the proposal loop.
 The random draws are arguments: ``None`` gives the deterministic
 (non-stratified) samples the serving path uses; a tensor of uniform draws
 gives stratified samples, so a caller can feed in JAX's draws and compare.
+Training draws one (R, 1) tensor per round (single jitter), from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -105,10 +107,14 @@ def proposal_sample(ray_bundle: RayBundle, density_fns: Sequence[DensityFn],
                     num_proposal_samples: Tuple[int, ...], num_nerf_samples: int,
                     spec: SpacingSpec, anneal: float = 1.0,
                     uniforms: Optional[Sequence[torch.Tensor]] = None,
+                    stop_prop_grad: bool = False,
                     ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Proposal rounds (density + K3 weights + PDF resample), then the final
-    bins. ``uniforms``: None (deterministic) or one draw tensor per round.
-    Returns (final samples, proposal weights list, proposal samples list)."""
+    bins. ``uniforms``: None (deterministic) or one draw tensor per round;
+    ``anneal`` raises the proposal weights to a power before resampling;
+    ``stop_prop_grad`` detaches the proposal densities (the steps between
+    proposal updates). Returns (final samples, proposal weights list,
+    proposal samples list)."""
     n_rounds = len(num_proposal_samples)
     weights_list: List[torch.Tensor] = []
     ray_samples_list: List[RaySamples] = []
@@ -126,6 +132,8 @@ def proposal_sample(ray_bundle: RayBundle, density_fns: Sequence[DensityFn],
                                      spec, uniform, eps=eps)
         if is_prop:
             density = density_fns[i_level](ray_samples.positions())
+            if stop_prop_grad:
+                density = density.detach()
             weights = volume_render(ray_samples.deltas().contiguous(),
                                     density.contiguous())["weights"]
             weights_list.append(weights)

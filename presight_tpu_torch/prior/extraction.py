@@ -133,10 +133,12 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
                    use_segmentation_mask: bool = True,
                    mask_seg_classes=DEFAULT_MASK_SEG_CLASSES,
                    density_threshold: float = 1.0,
-                   z_bounds=(-3.0, 6.0)) -> Dict[str, np.ndarray]:
+                   z_bounds=(-3.0, 6.0),
+                   accumulator: str = "native") -> Dict[str, np.ndarray]:
     """Full extraction. Each frame's points are thresholded and spilled to a
     temporary directory, then folded into the O(voxels) accumulator once
-    the grid origin (min of all points - 1) is known."""
+    the grid origin (min of all points - 1) is known. ``accumulator``:
+    'native' (C++) or 'numpy' (its plain version; same bytes)."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     depth_key = {"depth": "depth", "expected_depth": "expected_depth"}[depth_type]
@@ -201,7 +203,8 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
         print(f"num hit points after density thr: {n_after}")
         min_bound = (pts_min - np.float32(1.0) if pts_min is not None
                      else np.zeros(3, np.float32))
-        accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim)
+        accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim,
+                                           accumulator=accumulator)
         for fpath in spill_frames:
             with np.load(fpath) as z:
                 accum.add(z["points"].astype(np.float64), z["colors"], z["features"])

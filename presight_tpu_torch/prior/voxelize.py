@@ -1,9 +1,8 @@
 """Voxel downsampling — the Open3D `voxel_down_sample_and_trace` replacement.
 
-The streaming half of presight_tpu/prior/voxelize.py (numpy only): the
-JAX package's ``prior`` package imports jax on import, so the port cannot
-import this module from there. The native accumulator is imported from
-``presight_tpu.native``, which imports no jax.
+The streaming half of presight_tpu/prior/voxelize.py (numpy only), copied
+because the port imports nothing of the JAX package. The native accumulator
+is the port's own (``presight_tpu_torch.native``).
 
 Reference spec: nerfstudio-0.3.3/nerfstudio/scripts/extract_priors.py:216-245
 (Open3D voxel_down_sample_and_trace at voxel_size=0.4, min_bound =
@@ -33,8 +32,8 @@ def voxel_keys(points: np.ndarray, voxel_size: float, min_bound: np.ndarray) -> 
 
 
 class StreamingVoxelAccumulator:
-    """Pure-numpy streaming voxel mean-downsample — the fallback for
-    native.VoxelAccumulator with identical outputs.
+    """Pure-numpy streaming voxel mean-downsample — the plain version of
+    native.VoxelAccumulator, with identical outputs.
 
     Feed per-frame batches with ``add``; memory is O(unique voxels), never
     O(total points) (the reference's Open3D pass needs up to 300 GB host RAM
@@ -127,20 +126,22 @@ class StreamingVoxelAccumulator:
         return out
 
 
-def make_streaming_accumulator(voxel_size: float, min_bound: np.ndarray,
-                               feature_dim: int = 0, with_colors: bool = True):
-    """Native C++ accumulator when the library builds, numpy otherwise —
-    identical outputs either way (parity-tested)."""
-    try:
-        from presight_tpu.native import VoxelAccumulator, available
+ACCUMULATORS = ("native", "numpy")
 
-        if available():
-            return VoxelAccumulator(voxel_size, min_bound, feature_dim,
-                                    with_colors)
-    except Exception:  # noqa: BLE001 - no toolchain
-        pass
-    return StreamingVoxelAccumulator(voxel_size, min_bound, feature_dim,
-                                     with_colors)
+
+def make_streaming_accumulator(voxel_size: float, min_bound: np.ndarray,
+                               feature_dim: int = 0, with_colors: bool = True,
+                               accumulator: str = "native"):
+    """The port's native C++ accumulator (built with g++ at first use; a
+    failed build raises), or with ``accumulator="numpy"`` its plain numpy
+    version -- the same bytes either way (tests/test_torch_native.py)."""
+    if accumulator == "native":
+        from ..native import VoxelAccumulator
+
+        return VoxelAccumulator(voxel_size, min_bound, feature_dim, with_colors)
+    if accumulator == "numpy":
+        return StreamingVoxelAccumulator(voxel_size, min_bound, feature_dim, with_colors)
+    raise ValueError(f"accumulator must be one of {ACCUMULATORS}, got {accumulator!r}")
 
 
 def hit_quantile_filter(

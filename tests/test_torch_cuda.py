@@ -6,8 +6,12 @@ machine, which has none:
 
 Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5; K2 atol 1e-5 +
 rtol 1e-4; K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
-rtol 1e-5. Sums are taken in other orders than the plain versions'; expert
-routing is exact.
+rtol 1e-5; K1b keys exact, rows atol 1e-7 + rtol 1e-6; K5 and the table
+gradient atol 1e-5 + rtol 1e-5 (run sums in one order against
+segment_reduce's); K2b and K3b atol 1e-5 of the largest gradient + rtol
+1e-4 (per-tile against per-block partial sums; warp scans against cumsum).
+Sums are taken in other orders than the plain versions'; expert routing is
+exact.
 """
 
 import numpy as np
@@ -15,7 +19,7 @@ import pytest
 import torch
 
 from presight_tpu_torch import kernels
-from presight_tpu_torch.configs import HashEncodingConfig, NerfactoNuscMSConfig
+from presight_tpu_torch.configs import HashEncodingConfig, NerfactoNuscMSConfig, OptimizerGroupConfig
 from presight_tpu_torch.data.cameras import CameraParams
 from presight_tpu_torch.engine.evaluator import ImageRenderer
 from presight_tpu_torch.fields import prop_field as PF
@@ -45,7 +49,7 @@ def cuda_model():
     cfg = NerfactoNuscMSConfig(**SMALL)
     cent = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.0]], np.float32)
     aabbs = np.stack([np.stack([c - 1.5, c + 1.5]) for c in cent]).astype(np.float32)
-    model = init_model(torch.Generator().manual_seed(0), cfg, aabbs, cent, 4, 2)
+    model = init_model(torch.Generator().manual_seed(0), cfg, aabbs, cent, 4, 2, device="cpu")
     params = model.params()
     for table in params["field"]["hash_table"] + params["props"][0]["hash_table"]:
         table.data.mul_(3e3)  # well above the 1e-4 init, so densities vary
@@ -89,7 +93,7 @@ def test_kernels_match_plain_versions(cuda_model):
     kargs = (grid, p["props"][0]["centroids"], p["props"][0]["aabbs"], gpos, cfg.prop_grid_res)
     torch.testing.assert_close(PF.prop_grid_density(*kargs), PF.prop_grid_density_plain(*kargs),
                                rtol=1e-5, atol=1e-6)
-    assert all(kernels.LAUNCHES[name] > 0 for name in kernels.KERNELS)
+    assert all(kernels.LAUNCHES[name] > 0 for name in kernels.KERNELS if name.endswith("_fwd"))
 
 
 @pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
@@ -156,3 +160,176 @@ def test_render_kernel_path_matches_plain_path(cuda_model):
     gpu = renderer.render(gpu_model, cams.to("cuda"), 0, 12, 20, prop_grid=grid.cuda())
     for key in ("rgb", "accumulation", "expected_depth", "semantics"):
         np.testing.assert_allclose(gpu[key], cpu[key], rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _close_scaled(got, want, rtol=1e-4, atol_frac=1e-5):
+    atol = atol_frac * float(want.abs().max().clamp_min(1e-30))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_sorted_accum_kernel_matches_plain():
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    keys, _ = torch.sort(torch.randint(0, 500, (20000,), generator=gen, device="cuda",
+                                       dtype=torch.int32), stable=True)
+    rows = torch.randn((20000, 24), generator=gen, device="cuda")
+    base = torch.randn((600, 24), generator=gen, device="cuda")
+    got, want = base.clone(), base.clone()
+    kernels.reset_launches()
+    HE.sorted_accum(keys, rows, got)
+    assert kernels.LAUNCHES["sorted_accum"] == 1
+    HE.sorted_accum_plain(keys, rows, want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
+@pytest.mark.parametrize("storage", ["corner", "cell", "shared"])
+def test_hash_encode_bwd_kernel_matches_plain(storage, with_experts):
+    """K1b's keys and rows, and the table gradient through sort + K5."""
+    _need_cuda()
+    cfg = HashEncodingConfig(num_levels=3, min_res=4, max_res=64, log2_hashmap_size=8,
+                             features_per_level=2, storage=storage)
+    num_experts = 3 if with_experts else 1
+    rng = np.random.RandomState(2)
+    nodes = [rng.randint(0, int(s) + 1, (64, 3)).astype(np.float32) / s for s in cfg.scalings()]
+    pos = torch.from_numpy(np.concatenate([rng.rand(3000, 3).astype(np.float32), *nodes])).cuda()
+    eids = (torch.from_numpy(rng.randint(0, num_experts, len(pos)).astype(np.int32)).cuda()
+            if with_experts else None)
+    grad = torch.from_numpy(rng.randn(len(pos), cfg.out_dim).astype(np.float32)).cuda()
+    kernels.reset_launches()
+    keys, rows = HE.hash_encode_bwd(pos, cfg, eids, grad)
+    assert kernels.LAUNCHES["hash_encode_bwd"] == 1
+    pkeys, prows = HE.hash_encode_bwd_plain(pos, cfg, eids, grad)
+    torch.testing.assert_close(keys, pkeys, rtol=0, atol=0)
+    torch.testing.assert_close(rows, prows, rtol=1e-6, atol=1e-7)
+    num_rows = (cfg.num_levels if storage == "shared" else num_experts * cfg.num_levels) \
+        * cfg.table_size
+    got = HE.table_grad(pos, cfg, eids, grad, num_rows)
+    assert kernels.LAUNCHES["sorted_accum"] == 1
+    want = HE.table_grad(pos.cpu(), cfg, None if eids is None else eids.cpu(), grad.cpu(),
+                         num_rows)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sigmoid", [False, True], ids=["linear", "sigmoid"])
+def test_mlp_blocks_bwd_kernel_matches_plain(sigmoid):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    routing = build_padded_routing(
+        torch.randint(0, 3, (1500,), generator=gen, device="cuda", dtype=torch.int32), 3, 512)
+    n = routing.to_slot.shape[0]
+    for dims in ([40, 64, 80], [47, 64, 64, 3], [64, 64, 64, 64]):
+        layers = [(torch.randn((3, a, b), generator=gen, device="cuda") * 0.3,
+                   torch.randn((3, b), generator=gen, device="cuda") * 0.1)
+                  for a, b in zip(dims[:-1], dims[1:])]
+        h = torch.randn((n, dims[0]), generator=gen, device="cuda")
+        g = torch.randn((n, dims[-1]), generator=gen, device="cuda")
+        kernels.reset_launches()
+        dx, grads = M.mlp_blocks_bwd(layers, h, routing.block_expert, sigmoid, g)
+        assert kernels.LAUNCHES["mlp_blocks_bwd"] == 1
+        pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, routing.block_expert, sigmoid, g)
+        _close_scaled(dx, pdx)
+        for (dw, db), (pw, pb) in zip(grads, pgrads):
+            _close_scaled(dw, pw)
+            _close_scaled(db, pb)
+    x = torch.randn((1000, 8), generator=gen, device="cuda")
+    mlp = [(torch.randn((1, 8, 64), generator=gen, device="cuda"),
+            torch.randn((1, 64), generator=gen, device="cuda")),
+           (torch.randn((1, 64, 1), generator=gen, device="cuda"),
+            torch.randn((1, 1), generator=gen, device="cuda"))]
+    g = torch.randn((1000, 1), generator=gen, device="cuda")
+    dx, grads = M.mlp_blocks_bwd(mlp, x, None, sigmoid, g)
+    pdx, pgrads = M.mlp_blocks_bwd_plain(mlp, x, None, sigmoid, g)
+    _close_scaled(dx, pdx)
+    for (dw, db), (pw, pb) in zip(grads, pgrads):
+        _close_scaled(dw, pw)
+        _close_scaled(db, pb)
+
+
+@pytest.mark.parametrize("payload_layout", ["padded", "none"])
+def test_volume_render_bwd_kernel_matches_plain(payload_layout):
+    """Every upstream gradient non-zero; saturated and empty rays present."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    R, S, C = 300, 48, 67
+    deltas = torch.rand((R, S), generator=gen, device="cuda") * 0.05
+    dens = torch.exp(torch.randn((R, S), generator=gen, device="cuda") * 2.0) * 4.0
+    dens[0, 3] = 1e30
+    dens[1] = 0.0
+    steps = torch.cumsum(deltas, -1) + 0.005
+    args = [torch.randn(shape, generator=gen, device="cuda") for shape in ((R, S), (R,), (R,))]
+    if payload_layout == "padded":
+        payload = torch.rand((R * S + 512, C), generator=gen, device="cuda")
+        index = torch.randperm(R * S + 512, generator=gen, device="cuda")[:R * S].to(torch.int32)
+        gcomp = torch.randn((R, C), generator=gen, device="cuda")
+    else:
+        payload = index = gcomp = None
+    w = VR.volume_render(deltas, dens, steps)["weights"]
+    kernels.reset_launches()
+    got = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp)
+    assert kernels.LAUNCHES["volume_render_bwd"] == 1
+    want = VR.volume_render_bwd_plain(deltas, dens, steps, payload, index, w, *args, gcomp)
+    _close_scaled(got[0], want[0])
+    if payload is not None:
+        _close_scaled(got[1], want[1])
+    # weights only (the proposal rounds)
+    d_only = VR.volume_render_bwd(deltas, dens, None, None, None, w, args[0], None, None, None)
+    d_plain = VR.volume_render_bwd_plain(deltas, dens, None, None, None, w, args[0], None, None,
+                                         None)
+    _close_scaled(d_only[0], d_plain[0])
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda_model):
+    """One training step of the small model through the kernels (CUDA) and
+    through the plain versions (CPU): the same weights, batch and draws.
+    Losses rtol 1e-4; each gradient leaf within 1e-3 of its norm (relative
+    L2), as chip_smoke.py phase 8: the kernel path resamples the PDF from
+    K3's weights, summed in another order, so a sample within rounding of a
+    cell face can read the neighbouring cell and move its gradient to
+    another row."""
+    from presight_tpu_torch import bridge
+    from presight_tpu_torch.engine.optimizers import make_optimizers
+    from presight_tpu_torch.engine.train_step import StepScalars, train_step
+    from presight_tpu_torch.models.nerfacto_ms import NerfactoNuscMS
+
+    cams = CameraParams(
+        c2w=torch.tensor([[[1.0, 0, 0, 0.2], [0, 1.0, 0, 0.1], [0, 0, 1.0, 0.0]]]),
+        fx=torch.tensor([8.0]), fy=torch.tensor([8.0]), cx=torch.tensor([10.0]),
+        cy=torch.tensor([6.0]), video_ids=torch.zeros(1, dtype=torch.int32))
+    rng = np.random.RandomState(5)
+    R = 256
+    batch = {"ray_index": torch.from_numpy(np.stack([np.zeros(R), rng.randint(0, 12, R),
+                                                     rng.randint(0, 20, R)], -1).astype(np.int32)),
+             "rgb": torch.from_numpy(rng.rand(R, 3).astype(np.float32)),
+             "sky": torch.from_numpy((rng.rand(R) < 0.3).astype(np.float32)),
+             "depth": torch.from_numpy((rng.rand(R) * 40).astype(np.float32)),
+             "features": torch.from_numpy(rng.rand(R, 64).astype(np.float32))}
+    draws = [[torch.from_numpy(rng.rand(128, 1).astype(np.float32)) for _ in range(3)]
+             for _ in range(2)]
+    grid = cuda_model.make_prop_grid()
+    results = []
+    for device in ("cpu", "cuda"):
+        tree = bridge.from_jax_params(bridge.to_numpy(cuda_model.params()))
+        model = NerfactoNuscMS(cuda_model.config, tree).to(device)
+        opts = make_optimizers(model.groups(), {k: OptimizerGroupConfig()
+                                                for k in ("fields", "proposal_networks")})
+        kernels.reset_launches()
+        metrics = train_step(model, opts, cams.to(device), {k: v.to(device) for k, v in batch.items()},
+                             StepScalars(0.5, 3.0, 0.05), stop_prop_grad=False, microbatch_rays=128,
+                             prop_grid=grid.to(device),
+                             draws=[[u.to(device) for u in d] for d in draws])
+        if device == "cuda":
+            for name in ("hash_encode_bwd", "mlp_blocks_bwd", "volume_render_bwd", "sorted_accum"):
+                assert kernels.LAUNCHES[name] > 0, name
+        results.append((metrics, [p.grad.cpu() for p in model.leaves if p.grad is not None]))
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
+    for key in m_cpu:
+        np.testing.assert_allclose(m_gpu[key], m_cpu[key], rtol=1e-4, err_msg=key)
+    assert len(g_gpu) == len(g_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-3
