@@ -9,18 +9,24 @@ Phases (any failure exits nonzero before the result lines are printed):
      source, in parallel) and time the build;
   3. check each forward kernel (K1-K4) against its plain PyTorch version on
      the card at the main path's shapes, with the stated tolerances, and
-     time both with CUDA events (median of 10 launches after warm-up);
+     time both with CUDA events (median of 10 launches after warm-up); K2
+     also as a chain of one-layer launches, which must equal the fused
+     launch bitwise, and its ReLU masks against the plain forward's (flips
+     only at ties: RELU_TIE_ATOL, RELU_TIE_SHARE);
   4. serve: initialise boston-seaport-camera-dino-c0-tpu at full width from
      a seed, build the cached proposal grid, render one 450x800 camera with
      ImageRenderer (11 chunks of 32768 rays) and extract priors from one
      6-camera frame at downscale 5; check finite outputs, the pickle schema,
-     and that K1-K4 were launched on this path;
+     and that K1-K4 were launched on this path; render twice more, the
+     second time under torch.profiler (device busy, K2's share; the table
+     goes to outputs/chip_smoke/render_profile.txt);
   5. hold the kernel path against the plain path (the same model on the
      CPU): the full-width cached grid, and a small render with each
      device's own grid (median depths may differ only at threshold ties);
   6. check the backward kernels (K1b, K2b, K3b, K5) against their plain
-     versions on the card at the training path's shapes, K5 also against
-     one index_add_ call, and time kernel, plain and library the same way;
+     versions on the card at the training path's shapes (K2b on K2's own
+     ReLU masks, and two K2b calls bitwise equal), K5 also against one
+     index_add_ call, and time kernel, plain and library the same way;
   7. train: the Trainer on a synthetic in-memory dataset (six 225x400
      cameras), 5 full-width steps of 65,536 rays in microbatches of 1024;
      print each step's losses, seconds, rays/s and grid refresh, and the
@@ -76,10 +82,18 @@ KERNEL_INFO = {
 }
 SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
                  "prop_grid_density_fwd")
-# Published peaks of one H100 SXM at 700 W: HBM bandwidth and f32 outside
-# the tensor cores.
+# Published peaks of one H100 SXM at 700 W: HBM bandwidth, f32 outside the
+# tensor cores, and f32-accurate products on the tensor cores: 3xTF32 takes
+# three TF32 products (495 TFLOP/s dense) for each f32 one, so 495/3. K2
+# and K2b are bound at that rate, the other kernels at the f32 one.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TC_F32_FLOPS_PER_S = 495e12 / 3
+# A ReLU mask of K2 (3xTF32) may differ from the plain forward's only
+# where the plain pre-activation is within this of 0, on at most this
+# share of the hidden pre-activations.
+RELU_TIE_ATOL = 1e-5
+RELU_TIE_SHARE = 1e-4
 TRAIN_STEPS = 5
 TRAIN_HW = (225, 400)
 
@@ -100,11 +114,11 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(ms, 'bytes' or 'operations'): the least time the card could take,
     the larger of the bytes over the HBM rate and the f32 operations over
-    the f32 peak."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    the peak rate for them."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -193,6 +207,50 @@ def median_depth_ties(model, model_cpu, cams, grid, grid_cpu, depth_gpu, depth_c
     print(f"  depth (median): {int(off.sum())} of {H * W} pixels differ by > {tol:g}, "
           f"{int((off & tie).sum())} of them threshold ties -> {'ok' if bad == 0 else 'FAIL'}")
     return [f"small render median depth differs on {bad} pixels"] if bad else []
+
+
+def k2_chain(layers, h, be, sigmoid):
+    """K2 as a chain of one-layer launches with the ReLU in torch between
+    them: (output, hidden pre-activations). Stacked (E, in, out) layers;
+    be None for one expert."""
+    from presight_tpu_torch.ops import mlp as M
+
+    pres, x = [], h
+    for i, (w, b) in enumerate(layers):
+        if i == len(layers) - 1:
+            return M.mlp_blocks_fwd([(w, b)], x, be, sigmoid), pres
+        pres.append(M.mlp_blocks_fwd([(w, b)], x, be))
+        x = torch.relu(pres[-1])
+
+
+def k2_masks(chk, case, layers, h, be, sigmoid):
+    """K2's own ReLU masks, with the checks that make them K2's: the chain
+    of one-layer launches equals the fused launch bitwise (every layer runs
+    the same fragment arithmetic), and the masks differ from the plain
+    forward's only at ties (RELU_TIE_ATOL, RELU_TIE_SHARE)."""
+    from presight_tpu_torch.ops import mlp as M
+
+    fused = M.mlp_blocks_fwd(layers, h, be, sigmoid)
+    out, pres = k2_chain(layers, h, be, sigmoid)
+    if not torch.equal(out, fused):
+        chk.failures.append(f"mlp_blocks_fwd {case}: the chained layers differ from the fused "
+                            f"kernel on {int((out != fused).sum())} outputs")
+    flips = bad = total = 0
+    x = h
+    for (w, b), pre in zip(layers, pres):
+        plain = M.apply_mlp_blocks_plain([(w, b)], x, be)
+        flip = (pre > 0) != (plain > 0)
+        flips += int(flip.sum())
+        bad += int((flip & (plain.abs() > RELU_TIE_ATOL)).sum())
+        total += plain.numel()
+        x = torch.relu(plain)
+    ok = bad == 0 and flips <= RELU_TIE_SHARE * total
+    print(f"  mlp_blocks_fwd {case}: chained == fused {torch.equal(out, fused)}; ReLU masks "
+          f"differ from the plain forward's on {flips} of {total} hidden pre-activations, "
+          f"{bad} of them beyond {RELU_TIE_ATOL:g} of 0 -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        chk.failures.append(f"mlp_blocks_fwd {case}: {flips} ReLU mask flips, {bad} not ties")
+    return [pre > 0 for pre in pres]
 
 
 def scene(num_experts: int):
@@ -311,15 +369,19 @@ def check_kernels(model, grid, chk: Checker):
         chk.close("mlp_blocks_fwd", f"{name} N={h.shape[0]}",
                   M.apply_mlp_blocks(layers, h, be, sig),
                   M.apply_mlp_blocks_plain(layers, h, be, sig), 1e-5, 1e-4)
+        k2_masks(chk, name, [(w.detach(), b.detach()) for w, b in layers], h, be, sig)
         if name.startswith("base"):
             chk.times["mlp_blocks_fwd"] = (
                 time_ms(lambda: M.apply_mlp_blocks(layers, h, be, sig)),
                 time_ms(lambda: M.apply_mlp_blocks_plain(layers, h, be, sig)))
-            chk.bounds["mlp_blocks_fwd"] = bound(*mlp_work(layers, h.shape[0], 2))
+            chk.bounds["mlp_blocks_fwd"] = bound(*mlp_work(layers, h.shape[0], 2),
+                                                 TC_F32_FLOPS_PER_S)
     prop_mlp = params["props"][0]["mlp"]
     h = torch.randn((n_prop, cfg.prop(1).hash.out_dim), generator=gen, device=dev)
     chk.close("mlp_blocks_fwd", f"proposal 8-64-1 N={n_prop}", M.apply_mlp(prop_mlp, h),
               M.apply_mlp_blocks_plain(prop_mlp, h, None), 1e-5, 1e-4)
+    k2_masks(chk, "proposal 8-64-1", [(w.detach()[None], b.detach()[None]) for w, b in prop_mlp],
+             h, None, False)
 
     # K3: final render with the rgb+semantics payload in padded slots, and the
     # two weights-only proposal rounds.
@@ -463,7 +525,10 @@ def check_backward_kernels(model, chk: Checker):
             print(f"  sorted_accum {name}: {skeys.unique_consecutive().numel()} distinct keys "
                   f"of {skeys.numel()}")
 
-    # K2b: the six MLP stacks of the training path.
+    # K2b: the six MLP stacks of the training path, against the plain
+    # backward on K2's own ReLU masks (a 3xTF32 pre-activation within
+    # rounding of 0 may take the other side; a flipped mask moves a row of
+    # dX and the dW columns it touches by more than the tolerance).
     f, s_ = params["field"], params["sky"]
     stacks = [("base 40-64-80", f["base_mlp"], main.block_expert, False),
               ("rgb 47-64-64-3 sigmoid", f["rgb_head"], main.block_expert, True),
@@ -477,8 +542,16 @@ def check_backward_kernels(model, chk: Checker):
         h = torch.randn((n, layers[0][0].shape[-2]), generator=gen, device=dev)
         g = torch.randn((n, layers[-1][0].shape[-1]), generator=gen, device=dev)
         layers = [(w.detach(), b.detach()) for w, b in layers]
+        masks = k2_masks(chk, name, layers, h, be, sig)
         dx, grads = M.mlp_blocks_bwd(layers, h, be, sig, g)
-        pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, be, sig, g)
+        pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, be, sig, g, relu_masks=masks)
+        dx2, grads2 = M.mlp_blocks_bwd(layers, h, be, sig, g)
+        same = torch.equal(dx, dx2) and all(torch.equal(a, c) and torch.equal(b_, d)
+                                            for (a, b_), (c, d) in zip(grads, grads2))
+        print(f"  mlp_blocks_bwd {name}: two calls bitwise equal {same} -> "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            chk.failures.append(f"mlp_blocks_bwd {name}: two calls differ")
         chk.close("mlp_blocks_bwd", f"{name} N={n} dX", dx, pdx, 1e-5 * float(pdx.abs().max()),
                   1e-4)
         for i, ((dw, db), (pw, pb)) in enumerate(zip(grads, pgrads)):
@@ -490,7 +563,7 @@ def check_backward_kernels(model, chk: Checker):
             chk.times["mlp_blocks_bwd"] = (time_ms(lambda: M.mlp_blocks_bwd(layers, h, be, sig, g)),
                                            time_ms(lambda: M.mlp_blocks_bwd_plain(layers, h, be,
                                                                                   sig, g)))
-            chk.bounds["mlp_blocks_bwd"] = bound(*mlp_work(layers, n, 6))
+            chk.bounds["mlp_blocks_bwd"] = bound(*mlp_work(layers, n, 6), TC_F32_FLOPS_PER_S)
 
     # K3b: the final render (48 samples, the 67-wide payload in padded slots)
     # with every upstream gradient non-zero, saturated and empty rays among
@@ -666,19 +739,20 @@ def train_phase(aabbs, cent, cams, chk: Checker):
     if recorded:
         time_sorted_accum(recorded, chk)
         problems += chk.failures
-    profile_step(trainer)
+    profile_device("profiled step", lambda: trainer.train(num_steps=1), "train_profile.txt")
     return trainer, launches, problems
 
 
-def profile_step(trainer):
-    """One more training step under torch.profiler: device busy time and
-    idle share of the step's wall time, and device time by kernel."""
+def profile_device(label, fn, out_name):
+    """fn() under torch.profiler: the device's busy time and idle share of
+    the traced wall time, the device time of K2's and K2b's kernels, and
+    the table of device time by kernel (written to OUT_DIR / out_name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train(num_steps=1)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -688,10 +762,20 @@ def profile_step(trainer):
         if b > end:
             busy += b - max(a, end)
             end = b
-    print(f"  profiled step: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
+    print(f"  {label}: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
           f"idle share {1.0 - busy / 1e6 / wall:.3f}")
+    mlp = {}
+    for e in events:
+        for kernel in ("mlp_blocks_fwd_kernel", "mlp_blocks_bwd_kernel",
+                       "mlp_blocks_bwd_reduce_kernel"):
+            if kernel in e.name:
+                ms, calls = mlp.get(kernel, (0.0, 0))
+                mlp[kernel] = (ms + (e.time_range.end - e.time_range.start) / 1e3, calls + 1)
+    for kernel, (ms, calls) in mlp.items():
+        print(f"  {label}: {kernel} {ms:.3f} ms in {calls} launches "
+              f"({ms / 1e3 / max(busy / 1e6, 1e-12):.3f} of device busy)")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    out = OUT_DIR / "train_profile.txt"
+    out = OUT_DIR / out_name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(table)
     for line in table.splitlines()[:30]:
@@ -964,6 +1048,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_render2 = time.perf_counter() - t0
     print(f"  render again (grid reused): {t_render2:.3f} s ({n_rays / t_render2:.1f} rays/s)")
+    profile_device("profiled render", lambda: renderer.render(model, render_cams, 0, H, W,
+                                                                prop_grid=grid),
+                   "render_profile.txt")
 
     # Phase 5: kernel path against the plain path (the same weights on the
     # CPU): the full-width cached grid, then a 16 x 32 render of camera 0 at

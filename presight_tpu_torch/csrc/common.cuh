@@ -49,14 +49,13 @@ constexpr uint32_t kExpertPrime = 3674653429u;
 // ---- grouped MLP (K2, K2b) ----
 
 constexpr int kMaxLayers = 4;
-constexpr int kTile = 64;  // rows per CUDA block; divides the expert block
+constexpr int kTile = 64;  // a CUDA block's rows are a multiple of it, inside one expert block
 
 struct MlpLayers {
   const float* w[kMaxLayers];  // (E, in, out)
   const float* b[kMaxLayers];  // (E, out)
   int dim[kMaxLayers + 1];     // dim[0] = in, dim[l + 1] = out of layer l
   int n_layers;
-  int stride;                  // padded activation row stride (odd)
 };
 
 // ---- per-ray warp scans (K3, K3b) ----

@@ -43,9 +43,9 @@ _ARGTYPES = {
     # pos, expert, tables (host array), scales (host array), n, L, F,
     # log2T, storage, expert_stride_rows, out, stream
     "hash_encode_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P],
-    # h, block_expert, n, rows_per_group, weights (host array), biases (host
-    # array), dims (host array), n_layers, sigmoid, out, stream
-    "mlp_blocks_fwd": [_P, _P, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
+    # h, block_expert, n, rows_per_group, rows_per_cta, weights (host array),
+    # biases (host array), dims (host array), n_layers, sigmoid, out, stream
+    "mlp_blocks_fwd": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _I, _I, _P, _P],
     # deltas, density, steps, clip, payload, payload_index, R, S, C,
     # threshold, weights, acc, depth, expected, composite, stream
     "volume_render_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _F,
@@ -55,10 +55,11 @@ _ARGTYPES = {
     # pos, expert, grad, scales (host array), n, L, F, log2T, storage, keys,
     # rows, stream
     "hash_encode_bwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
-    # h, block_expert, dout, n, rows_per_group, E, weights, biases (host
-    # arrays), dims (host array), n_layers, sigmoid, dx, dweights, dbiases
-    # (host arrays), partial, stream
-    "mlp_blocks_bwd": [_P, _P, _P, _I64, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # h, block_expert, dout, n, rows_per_group, rows_per_cta, E, weights,
+    # biases (host arrays), dims (host array), n_layers, sigmoid, dx,
+    # dweights, dbiases (host arrays), partial, index, stream
+    "mlp_blocks_bwd": [_P, _P, _P, _I64, _I64, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                       _P, _P],
     # deltas, density, steps, clip, payload, payload_index, weights, g_w,
     # g_acc, g_exp, g_comp, R, S, C, d_density, d_payload, stream
     "volume_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,

@@ -5,7 +5,8 @@ or (E, out). ``apply_mlp_blocks`` and ``apply_mlp`` run a
 ``torch.autograd.Function`` whose forward is kernel K2 (csrc/mlp_blocks.cu)
 and whose backward is kernel K2b (csrc/mlp_blocks_bwd.cu): dX, and dW, db
 per expert, with the ReLU masks and the sigmoid epilogue differentiated
-inside. On CUDA tensors the kernels launch, on CPU tensors the plain
+inside. Both run every product on the tensor cores in 3xTF32 (f32
+accuracy). On CUDA tensors the kernels launch, on CPU tensors the plain
 PyTorch versions run (the backward's formula written out, not autograd).
 """
 
@@ -23,7 +24,10 @@ Params = List[Tuple[torch.Tensor, torch.Tensor]]
 
 GROUP_BLOCK = 512  # rows per expert block of the grouped layout
 _MAX_LAYERS = 4
-_TILE = 64  # rows per CUDA block of K2; must divide the expert block
+_MAX_WIDTH = 80  # widest layer K2 and K2b take
+_TILE = 64  # a CUDA block's rows are a multiple of it; must divide the expert block
+_ROWS_PER_CTA = (512, 256, 128)  # the choices above _TILE, largest first
+_CTAS_PER_SM = 2  # the least launch the rows per block are chosen for
 
 
 def mlp_layer_dims(in_dim: int, num_layers: int, layer_width: int,
@@ -124,6 +128,8 @@ def _check_mlp(name: str, params: Params, h: torch.Tensor,
         if w.dim() != 3 or w.shape[-2] != dims[-1] or b.shape[-1] != w.shape[-1]:
             raise ValueError(f"{name}: layer shapes do not chain")
         dims.append(w.shape[-1])
+    if not all(1 <= d <= _MAX_WIDTH for d in dims):
+        raise ValueError(f"{name}: layer widths {dims} outside 1..{_MAX_WIDTH}")
     tensors = [h, *extra] + [t for wb in params for t in wb]
     for t in tensors:
         if t.dtype != torch.float32:
@@ -140,13 +146,35 @@ def _check_mlp(name: str, params: Params, h: torch.Tensor,
     return dims, rows_per_group
 
 
+def choose_rows_per_cta(n: int, rows_per_group: int, num_sms: int) -> int:
+    """Rows of one CUDA block of K2/K2b: the largest of 512, 256, 128 that
+    divides the expert block (any, for one expert) and still gives the
+    launch two blocks per SM, else 64. Each block loads its expert's
+    weights once for all of its rows."""
+    for rows in _ROWS_PER_CTA:
+        if (rows_per_group == 0 or rows_per_group % rows == 0) \
+                and -(-n // rows) >= _CTAS_PER_SM * num_sms:
+            return rows
+    return _TILE
+
+
+_SM_COUNT: dict = {}
+
+
+def _launch_rows(n: int, rows_per_group: int, device: torch.device) -> int:
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return choose_rows_per_cta(n, rows_per_group, _SM_COUNT[device])
+
+
 def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
                 sigmoid: bool) -> torch.Tensor:
     n = h.shape[0]
     dims, rows_per_group = _check_mlp("mlp_blocks_fwd", params, h, block_expert)
+    rows = _launch_rows(n, rows_per_group, h.device)
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=h.device)
     code = kernels.lib().mlp_blocks_fwd(
-        h.data_ptr(), kernels.ptr(block_expert), n, rows_per_group,
+        h.data_ptr(), kernels.ptr(block_expert), n, rows_per_group, rows,
         kernels.host_ptrs([w.data_ptr() for w, _ in params]),
         kernels.host_ptrs([b.data_ptr() for _, b in params]),
         (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid),
@@ -167,11 +195,15 @@ def mlp_blocks_fwd(params: Params, h: torch.Tensor, block_expert: Optional[torch
 
 def mlp_blocks_bwd_plain(params: Params, h: torch.Tensor,
                          block_expert: Optional[torch.Tensor], sigmoid: bool,
-                         grad: torch.Tensor):
+                         grad: torch.Tensor,
+                         relu_masks: Optional[List[torch.Tensor]] = None):
     """Plain version of K2b on stacked (E, in, out) weights: recompute the
     forward, then per layer from the last dPre = dAct * relu'(act) (and
     sigmoid' on the output), dW = act^T dPre and db = sum dPre per block,
-    summed per expert, and dAct = dPre W^T. Returns (dX, [(dW, db), ...])."""
+    summed per expert, and dAct = dPre W^T. Returns (dX, [(dW, db), ...]).
+    relu_masks, one bool (n, out) tensor per hidden layer, replaces act > 0
+    as the ReLU's gate (to hold K2b against the plain backward on K2's own
+    masks)."""
     n_layers = len(params)
     num_blocks = 1 if block_expert is None else block_expert.shape[0]
     be = torch.zeros((1,), dtype=torch.long, device=h.device) if block_expert is None \
@@ -192,7 +224,8 @@ def mlp_blocks_bwd_plain(params: Params, h: torch.Tensor,
     for i in range(n_layers - 1, -1, -1):
         w, b = params[i]
         if i < n_layers - 1:
-            d = torch.where(acts[i + 1] > 0, d, torch.zeros_like(d))
+            mask = acts[i + 1] > 0 if relu_masks is None else relu_masks[i]
+            d = torch.where(mask, d, torch.zeros_like(d))
         a = acts[i].reshape(num_blocks, -1, acts[i].shape[1])
         db_ = d.reshape(num_blocks, -1, d.shape[1])
         dw = torch.zeros_like(w).index_add_(0, be, torch.bmm(a.transpose(1, 2), db_))
@@ -211,19 +244,23 @@ def mlp_blocks_bwd(params: Params, h: torch.Tensor, block_expert: Optional[torch
     dims, rows_per_group = _check_mlp("mlp_blocks_bwd", params, h, block_expert, grad)
     if grad.shape != (n, dims[-1]):
         raise ValueError("mlp_blocks_bwd: grad must be (n, out)")
+    rows = _launch_rows(n, rows_per_group, h.device)
     num_experts = params[0][0].shape[0]
     dx = torch.empty_like(h)
     grads = [(torch.empty_like(w), torch.empty_like(b)) for w, b in params]
     partial_size = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-    partial = torch.empty((-(-n // _TILE), partial_size), dtype=torch.float32, device=h.device)
+    num_ctas = -(-n // rows)
+    partial = torch.empty((num_ctas, partial_size), dtype=torch.float32, device=h.device)
+    # the reduction's index, filled on the device by the kernel's counting sort
+    index = torch.empty((num_ctas + num_experts + 1,), dtype=torch.int32, device=h.device)
     code = kernels.lib().mlp_blocks_bwd(
-        h.data_ptr(), kernels.ptr(block_expert), grad.data_ptr(), n, rows_per_group,
+        h.data_ptr(), kernels.ptr(block_expert), grad.data_ptr(), n, rows_per_group, rows,
         num_experts, kernels.host_ptrs([w.data_ptr() for w, _ in params]),
         kernels.host_ptrs([b.data_ptr() for _, b in params]),
         (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid), dx.data_ptr(),
         kernels.host_ptrs([dw.data_ptr() for dw, _ in grads]),
         kernels.host_ptrs([db.data_ptr() for _, db in grads]), partial.data_ptr(),
-        kernels.stream())
+        index.data_ptr(), kernels.stream())
     kernels.check("mlp_blocks_bwd", code)
     kernels.LAUNCHES["mlp_blocks_bwd"] += 1
     return dx, grads

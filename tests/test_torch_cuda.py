@@ -5,7 +5,9 @@ machine, which has none:
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5; K2 atol 1e-5 +
-rtol 1e-4; K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
+rtol 1e-4 (3xTF32 products; its ReLU masks may differ from the plain
+forward's only at ties, and K2b is held against the plain backward on
+K2's own masks); K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
 rtol 1e-5; K1b keys exact, rows atol 1e-7 + rtol 1e-6; K5 and the table
 gradient atol 1e-5 + rtol 1e-5 (run sums in one order against
 segment_reduce's); K2b and K3b atol 1e-5 of the largest gradient + rtol
@@ -216,39 +218,129 @@ def test_hash_encode_bwd_kernel_matches_plain(storage, with_experts):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("sigmoid", [False, True], ids=["linear", "sigmoid"])
-def test_mlp_blocks_bwd_kernel_matches_plain(sigmoid):
+# The MLP stacks of the -tpu profile: widths 47 (the rgb head's input) and
+# 1 (the proposal MLP's output) included.
+MLP_STACKS = ([40, 64, 80], [47, 64, 64, 3], [64, 64, 64, 64], [16, 32, 32, 64], [8, 64, 1])
+
+
+def _mlp_layers(gen, dims, num_experts):
+    return [(torch.randn((num_experts, a, b), generator=gen, device="cuda") / a ** 0.5,
+             torch.randn((num_experts, b), generator=gen, device="cuda") * 0.1)
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _k2_masks(layers, h, be, sigmoid):
+    """K2's ReLU masks from a chain of one-layer launches, which must equal
+    the fused launch bitwise; the masks may differ from the plain
+    forward's only where the plain pre-activation is within 1e-5 of 0, on
+    at most 0.01% of the hidden pre-activations (chip_smoke.py's tie rule)."""
+    fused = M.mlp_blocks_fwd(layers, h, be, sigmoid)
+    x, masks, flips, total = h, [], 0, 0
+    plain_x = h
+    for i, (w, b) in enumerate(layers):
+        last = i == len(layers) - 1
+        y = M.mlp_blocks_fwd([(w, b)], x, be, sigmoid and last)
+        if last:
+            assert torch.equal(y, fused)
+            break
+        plain = M.apply_mlp_blocks_plain([(w, b)], plain_x, be)
+        flip = (y > 0) != (plain > 0)
+        assert not bool((flip & (plain.abs() > 1e-5)).any())
+        flips, total = flips + int(flip.sum()), total + plain.numel()
+        masks.append(y > 0)
+        x, plain_x = torch.relu(y), torch.relu(plain)
+    assert flips <= 1e-4 * max(total, 1)
+    return masks
+
+
+def _layout_without_expert_1(gen, rows):
+    """Three experts, expert 1 owning no block."""
+    eids = torch.randint(0, 2, (rows,), generator=gen, device="cuda", dtype=torch.int32) * 2
+    return build_padded_routing(eids, 3, 512).block_expert
+
+
+def test_mlp_blocks_fwd_kernel_matches_plain():
+    """K2 on every stack, with an expert that owns no block and on the
+    single-expert path (1000 rows: a ragged last block); K2's chained
+    layers equal the fused launch bitwise."""
     _need_cuda()
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    routing = build_padded_routing(
-        torch.randint(0, 3, (1500,), generator=gen, device="cuda", dtype=torch.int32), 3, 512)
-    n = routing.to_slot.shape[0]
-    for dims in ([40, 64, 80], [47, 64, 64, 3], [64, 64, 64, 64]):
-        layers = [(torch.randn((3, a, b), generator=gen, device="cuda") * 0.3,
-                   torch.randn((3, b), generator=gen, device="cuda") * 0.1)
-                  for a, b in zip(dims[:-1], dims[1:])]
-        h = torch.randn((n, dims[0]), generator=gen, device="cuda")
-        g = torch.randn((n, dims[-1]), generator=gen, device="cuda")
-        kernels.reset_launches()
-        dx, grads = M.mlp_blocks_bwd(layers, h, routing.block_expert, sigmoid, g)
-        assert kernels.LAUNCHES["mlp_blocks_bwd"] == 1
-        pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, routing.block_expert, sigmoid, g)
-        _close_scaled(dx, pdx)
-        for (dw, db), (pw, pb) in zip(grads, pgrads):
-            _close_scaled(dw, pw)
-            _close_scaled(db, pb)
-    x = torch.randn((1000, 8), generator=gen, device="cuda")
-    mlp = [(torch.randn((1, 8, 64), generator=gen, device="cuda"),
-            torch.randn((1, 64), generator=gen, device="cuda")),
-           (torch.randn((1, 64, 1), generator=gen, device="cuda"),
-            torch.randn((1, 1), generator=gen, device="cuda"))]
-    g = torch.randn((1000, 1), generator=gen, device="cuda")
-    dx, grads = M.mlp_blocks_bwd(mlp, x, None, sigmoid, g)
-    pdx, pgrads = M.mlp_blocks_bwd_plain(mlp, x, None, sigmoid, g)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    be = _layout_without_expert_1(gen, 2000)
+    for sigmoid in (False, True):
+        for dims in MLP_STACKS:
+            layers = _mlp_layers(gen, dims, 3)
+            h = torch.randn((be.shape[0] * 512, dims[0]), generator=gen, device="cuda")
+            kernels.reset_launches()
+            got = M.mlp_blocks_fwd(layers, h, be, sigmoid)
+            assert kernels.LAUNCHES["mlp_blocks_fwd"] == 1
+            torch.testing.assert_close(got, M.apply_mlp_blocks_plain(layers, h, be, sigmoid),
+                                       rtol=1e-4, atol=1e-5)
+            _k2_masks(layers, h, be, sigmoid)
+            one = [(w[:1], b[:1]) for w, b in layers]
+            x = torch.randn((1000, dims[0]), generator=gen, device="cuda")
+            torch.testing.assert_close(M.mlp_blocks_fwd(one, x, None, sigmoid),
+                                       M.apply_mlp_blocks_plain(one, x, None, sigmoid),
+                                       rtol=1e-4, atol=1e-5)
+            _k2_masks(one, x, None, sigmoid)
+
+
+def _check_bwd(layers, h, be, sigmoid, g):
+    """K2b against the plain backward on K2's own masks, and two K2b calls
+    bitwise equal."""
+    masks = _k2_masks(layers, h, be, sigmoid)
+    kernels.reset_launches()
+    dx, grads = M.mlp_blocks_bwd(layers, h, be, sigmoid, g)
+    assert kernels.LAUNCHES["mlp_blocks_bwd"] == 1
+    pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, be, sigmoid, g, relu_masks=masks)
     _close_scaled(dx, pdx)
     for (dw, db), (pw, pb) in zip(grads, pgrads):
         _close_scaled(dw, pw)
         _close_scaled(db, pb)
+    dx2, grads2 = M.mlp_blocks_bwd(layers, h, be, sigmoid, g)
+    assert torch.equal(dx, dx2)
+    for (dw, db), (dw2, db2) in zip(grads, grads2):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    return grads
+
+
+@pytest.mark.parametrize("sigmoid", [False, True], ids=["linear", "sigmoid"])
+def test_mlp_blocks_bwd_kernel_matches_plain(sigmoid):
+    """K2b on every stack, with an expert that owns no block (its dW and db
+    are zero) and on the single-expert path; deterministic; held against
+    the plain backward on K2's masks."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    be = _layout_without_expert_1(gen, 1500)
+    n = be.shape[0] * 512
+    for dims in MLP_STACKS:
+        layers = _mlp_layers(gen, dims, 3)
+        h = torch.randn((n, dims[0]), generator=gen, device="cuda")
+        g = torch.randn((n, dims[-1]), generator=gen, device="cuda")
+        grads = _check_bwd(layers, h, be, sigmoid, g)
+        for dw, db in grads:
+            assert not bool(dw[1].any()) and not bool(db[1].any())
+    one = _mlp_layers(gen, [8, 64, 1], 1)
+    x = torch.randn((1000, 8), generator=gen, device="cuda")
+    _check_bwd(one, x, None, sigmoid, torch.randn((1000, 1), generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("rows", [512, 256, 128, 64])
+def test_mlp_kernels_at_each_automatic_rows_per_cta(rows):
+    """The row counts at which the wrapper picks each rows per CUDA block
+    on this card (two blocks per SM), K2 and K2b on the base MLP there."""
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = max(2 * sms * rows // 512, 3)
+    assert M.choose_rows_per_cta(blocks * 512, 512, sms) == rows
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    be = torch.sort(torch.randint(0, 16, (blocks,), generator=gen, device="cuda",
+                                  dtype=torch.int32))[0]
+    layers = _mlp_layers(gen, [40, 64, 80], 16)
+    h = torch.randn((blocks * 512, 40), generator=gen, device="cuda")
+    g = torch.randn((blocks * 512, 80), generator=gen, device="cuda")
+    torch.testing.assert_close(M.mlp_blocks_fwd(layers, h, be), M.apply_mlp_blocks_plain(
+        layers, h, be), rtol=1e-4, atol=1e-5)
+    _check_bwd(layers, h, be, False, g)
 
 
 @pytest.mark.parametrize("payload_layout", ["padded", "none"])
