@@ -9,7 +9,8 @@ Phases (any failure exits nonzero before the result lines are printed):
      source, in parallel) and time the build;
   3. check each forward kernel (K1-K4) against its plain PyTorch version on
      the card at the main path's shapes, with the stated tolerances, and
-     time both with CUDA events (median of 10 launches after warm-up); K2
+     time both by their device time (torch.profiler, 10 calls after
+     warm-up; time_ms); K2
      also as a chain of one-layer launches, which must equal the fused
      launch bitwise, and its ReLU masks against the plain forward's (flips
      only at ties: RELU_TIE_ATOL, RELU_TIE_SHARE);
@@ -25,22 +26,30 @@ Phases (any failure exits nonzero before the result lines are printed):
      device's own grid (median depths may differ only at threshold ties);
   6. check the backward kernels (K1b, K2b, K3b, K5) against their plain
      versions on the card at the training path's shapes (K2b on K2's own
-     ReLU masks, and two K2b calls bitwise equal), K5 also against one
-     index_add_ call, and time kernel, plain and library the same way;
+     ReLU masks; two calls of K2b, K3b and K5 bitwise equal), K5 through
+     the sort's permutation into a non-zero prior gradient and also against
+     one index_add_ call, and time kernel, plain and library the same way;
   7. train: the Trainer on a synthetic in-memory dataset (six 225x400
      cameras), 5 full-width steps of 65,536 rays in microbatches of 1024;
      print each step's losses, seconds, rays/s and grid refresh, and the
      peak device memory; fail on a non-finite loss or parameter, or if any
-     of the eight kernels was not launched on the training path; then one
-     more step under torch.profiler for the device's busy time and idle
-     share (the table goes to outputs/chip_smoke/train_profile.txt);
+     of the eight kernels was not launched on the training path; check and
+     time K5 on the inputs of a training microbatch as phase 6 does, and the
+     chain torch.sort + K5 against index_add_ on the unsorted pairs; then
+     one more step under torch.profiler: the device's busy time and idle
+     share, each kernel's device time and launches in the step (step_ms,
+     step_launches), the hash backward's and AccumulateGrad's device time,
+     and a check that AccumulateGrad never ran on a hash table (the table
+     goes to outputs/chip_smoke/train_profile.txt);
   8. hold the training kernel path against the plain path for one step on
      the same weights, 2048-ray batch and draws (the plain path on the CPU):
      losses, every gradient leaf and the updated parameters.
 The line before the last is a JSON object with each kernel's launches (on
-the serving and the training path), error, times and bound; the last line
-is {"ok": true, "device": {...}}. Writes the prior pickle under
-outputs/chip_smoke/.
+the serving and the training path), error, times, bound and device time
+and launches in one training step; the last line
+is {"ok": true, "device": {...}}. Writes the prior pickle, the profile
+tables and K5's recorded training-microbatch inputs (k5_training_pairs.pt,
+which chip_ab.py reads) under outputs/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -80,6 +89,18 @@ KERNEL_INFO = {
     "sorted_accum": ("presight_tpu_torch/csrc/sorted_accum.cu",
                      "scripts_dev/pallas_accum.py:30"),
 }
+# The __global__ kernels each wrapper launches, as the profiler names them.
+KERNEL_GLOBALS = {
+    "hash_encode_fwd": ("hash_encode_fwd_kernel",),
+    "mlp_blocks_fwd": ("mlp_blocks_fwd_kernel",),
+    "volume_render_fwd": ("volume_render_fwd_kernel",),
+    "prop_grid_density_fwd": ("prop_grid_density_kernel",),
+    "hash_encode_bwd": ("hash_encode_bwd_kernel",),
+    "mlp_blocks_bwd": ("mlp_blocks_bwd_kernel", "mlp_blocks_bwd_index_kernel",
+                       "mlp_blocks_bwd_reduce_kernel"),
+    "volume_render_bwd": ("volume_render_bwd_kernel",),
+    "sorted_accum": ("sorted_accum_tiles", "sorted_accum_carry"),
+}
 SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
                  "prop_grid_density_fwd")
 # Published peaks of one H100 SXM at 700 W: HBM bandwidth, f32 outside the
@@ -98,20 +119,30 @@ TRAIN_STEPS = 5
 TRAIN_HW = (225, 400)
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of fn() on the current stream, by CUDA events."""
+def device_events(fn, reps: int = 10):
+    """The device events (kernels, memsets, copies) of ``reps`` calls of
+    fn() after two warm-up calls, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds per call of fn(): the summed durations of the
+    kernels, memsets and copies it runs on the card over ``reps`` calls.
+    The host's share of a call (Python, a wrapper's checks and allocations,
+    the launch) is left out: several of the port's kernels take less time
+    than a Python call takes to launch them, so CUDA events around one call
+    would time the host."""
+    events = device_events(fn, reps)
+    return sum(e.time_range.end - e.time_range.start for e in events) / reps / 1e3
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -493,37 +524,19 @@ def check_backward_kernels(model, chk: Checker):
         chk.close("hash_encode_bwd", f"{name} rows", rows, prows, 1e-9, 1e-6)
         if hcfg.storage != "shared":
             continue
-        num_rows = hcfg.num_levels * hcfg.table_size
         skeys, order = torch.sort(keys, stable=True)
-        srows = rows.index_select(0, order)
-        out = torch.zeros((num_rows, rows.shape[1]), device=dev)
-        HE.sorted_accum(skeys, srows, out)
-        want = torch.zeros_like(out)
-        HE.sorted_accum_plain(skeys, srows, want)
-        chk.close("sorted_accum", f"{name} N={keys.numel()} C={rows.shape[1]} T={num_rows}",
-                  out, want, 1e-9, 1e-5)
-        lib = torch.zeros_like(out).index_add_(0, skeys.long(), srows)
-        chk.close("sorted_accum", f"{name} vs index_add_", out, lib, 1e-9, 1e-5)
+        prior = prior_gradient(skeys, order, rows, hcfg.num_levels * hcfg.table_size)
+        check_sorted_accum(chk, f"{name} N={keys.numel()} C={rows.shape[1]} "
+                           f"T={hcfg.num_levels}x{hcfg.table_size}", skeys, order, rows, prior,
+                           hcfg.table_size)
         if name.startswith("main"):
             chk.times["hash_encode_bwd"] = (time_ms(lambda: HE.hash_encode_bwd(pos, hcfg, eids, g)),
                                             time_ms(lambda: HE.hash_encode_bwd_plain(pos, hcfg,
                                                                                      eids, g)))
             chk.bounds["hash_encode_bwd"] = bound(n * 16 + g.numel() * 4 + keys.numel() * 4
                                                   + rows.numel() * 4, rows.numel() * 2)
-
-            def kernel():
-                HE.sorted_accum(skeys, srows, torch.zeros_like(out))
-
-            def plain():
-                HE.sorted_accum_plain(skeys, srows, torch.zeros_like(out))
-
-            chk.times["sorted_accum"] = (time_ms(kernel), time_ms(plain))
-            chk.library["sorted_accum"] = time_ms(
-                lambda: torch.zeros_like(out).index_add_(0, skeys.long(), srows))
-            chk.bounds["sorted_accum"] = bound(skeys.numel() * 4 + srows.numel() * 4
-                                               + out.numel() * 4, srows.numel())
-            print(f"  sorted_accum {name}: {skeys.unique_consecutive().numel()} distinct keys "
-                  f"of {skeys.numel()}")
+            time_sorted_accum(chk, skeys, order, rows, prior, hcfg.table_size,
+                              " on random keys")
 
     # K2b: the six MLP stacks of the training path, against the plain
     # backward on K2's own ReLU masks (a 3xTF32 pre-activation within
@@ -583,7 +596,8 @@ def check_backward_kernels(model, chk: Checker):
     sat = int((fwd["accumulation"] == 1.0).sum())
     empty = int((fwd["accumulation"] == 0.0).sum())
     vargs = (deltas, dens, steps, payload, index, fwd["weights"], *ups)
-    got, want = VR.volume_render_bwd(*vargs), VR.volume_render_bwd_plain(*vargs)
+    clip = VR.step_bounds(steps)  # the forward's, as the autograd Function hands it on
+    got, want = VR.volume_render_bwd(*vargs, clip), VR.volume_render_bwd_plain(*vargs)
     print(f"  volume_render_bwd: {sat} saturated and {empty} empty rays of {rays}")
     if sat == 0 or empty == 0:
         chk.failures.append("volume_render_bwd: no saturated or no empty ray in the check")
@@ -591,10 +605,18 @@ def check_backward_kernels(model, chk: Checker):
               1e-5 * float(want[0].abs().max()), 1e-4)
     chk.close("volume_render_bwd", f"d payload P={n_main} C={C}", got[1], want[1],
               1e-5 * float(want[1].abs().max()), 1e-4)
-    chk.times["volume_render_bwd"] = (time_ms(lambda: VR.volume_render_bwd(*vargs)),
+    same = all(torch.equal(a, b) for a, b in zip(got, VR.volume_render_bwd(*vargs, clip)))
+    print(f"  volume_render_bwd: two calls bitwise equal {same} -> {'ok' if same else 'FAIL'}")
+    if not same:
+        chk.failures.append("volume_render_bwd: two calls differ")
+    chk.times["volume_render_bwd"] = (time_ms(lambda: VR.volume_render_bwd(*vargs, clip)),
                                       time_ms(lambda: VR.volume_render_bwd_plain(*vargs)))
+    # Per sample: delta, sigma, t, w, dL/dw, the payload index and d sigma, and
+    # the payload row read; per ray the upstream gradients; every row of
+    # d_payload written (the padding slots' zeros too).
     chk.bounds["volume_render_bwd"] = bound(
-        rays * S * (4 * 7 + 2 * C * 4) + rays * (C + 2) * 4, rays * S * (30 + 4 * C))
+        rays * S * (4 * 7 + C * 4) + n_main * C * 4 + rays * (C + 2) * 4,
+        rays * S * (30 + 4 * C))
     Sp = cfg.num_proposal_samples_per_ray[1]
     d = torch.rand((rays, Sp), generator=gen, device=dev) * 0.05
     sg = torch.exp(torch.randn((rays, Sp), generator=gen, device=dev) * 2.0) * 4.0
@@ -645,10 +667,12 @@ def recording_sorted_accum():
     real = HE.sorted_accum
     recorded = {}
 
-    def record(keys, rows, out):
-        if not recorded or rows.numel() >= recorded["rows"].numel():
-            recorded.update(keys=keys.clone(), rows=rows.clone(), shape=tuple(out.shape))
-        return real(keys, rows, out)
+    def record(keys, rows, out, order=None):
+        if order is not None and (not recorded or rows.numel() >= recorded["rows"].numel()):
+            parts = out if isinstance(out, (list, tuple)) else [out]
+            recorded.update(keys=keys.clone(), order=order.clone(), rows=rows.clone(),
+                            parts=len(parts), part_rows=parts[0].shape[0])
+        return real(keys, rows, out, order)
 
     HE.sorted_accum = record
     try:
@@ -657,36 +681,104 @@ def recording_sorted_accum():
         HE.sorted_accum = real
 
 
-def time_sorted_accum(recorded, chk: Checker):
-    """K5 against its plain version and one index_add_ call on the keys and
-    rows of a training microbatch (output zero fill included in all three)."""
+def prior_gradient(keys, order, rows, num_rows):
+    """A gradient for K5 to accumulate into, of the scale of the rows: half
+    the table gradient of the same pairs (the plain version's), as an
+    earlier microbatch over the same cells would leave. index_add_ adds the
+    rows one by one into it, so a prior much larger than the rows would
+    measure index_add_'s rounding, not K5's."""
     from presight_tpu_torch.ops import hash_encoding as HE
 
-    keys, rows, shape = recorded["keys"], recorded["rows"], recorded["shape"]
-    out = torch.zeros(shape, device=keys.device)
-    HE.sorted_accum(keys, rows, out)
-    want = torch.zeros_like(out)
-    HE.sorted_accum_plain(keys, rows, want)
-    chk.close("sorted_accum", f"training keys N={keys.numel()} C={shape[1]} T={shape[0]}",
-              out, want, 1e-9, 1e-5)
-    chk.close("sorted_accum", "training keys vs index_add_", out,
-              torch.zeros_like(out).index_add_(0, keys.long(), rows), 1e-9, 1e-5)
-    runs = torch.unique_consecutive(keys, return_counts=True)[1]
+    prior = torch.zeros((num_rows, rows.shape[1]), device=rows.device)
+    HE.sorted_accum_plain(keys, rows, prior, order)
+    return prior.mul_(0.5)
+
+
+def check_sorted_accum(chk: Checker, case, keys, order, rows, prior, part_rows):
+    """K5 (sorted keys, rows through the sort's permutation, into the level
+    parts of a non-zero prior gradient) against its plain version and one
+    index_add_ call; two launches bitwise equal."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    got = prior.clone()
+    HE.sorted_accum(keys, rows, list(got.split(part_rows)), order)
+    want = prior.clone()
+    HE.sorted_accum_plain(keys, rows, list(want.split(part_rows)), order)
+    chk.close("sorted_accum", case, got, want, 1e-9, 1e-5)
+    lib = prior.clone().index_add_(0, keys.long(), rows.index_select(0, order))
+    chk.close("sorted_accum", f"{case} vs index_add_", got, lib, 1e-9, 1e-5)
+    again = prior.clone()
+    HE.sorted_accum(keys, rows, list(again.split(part_rows)), order)
+    same = torch.equal(got, again)
+    print(f"  sorted_accum {case}: two calls bitwise equal {same} -> {'ok' if same else 'FAIL'}")
+    if not same:
+        chk.failures.append(f"sorted_accum {case}: two calls differ")
+
+
+def time_sorted_accum(chk: Checker, keys, order, rows, prior, part_rows, label=""):
+    """K5, its plain version and one index_add_ call on the same inputs, each
+    accumulating into an existing output (no zero fill timed); index_add_
+    reads the rows already sorted. Also the chain torch.sort + K5 against
+    index_add_ on K1b's unsorted pairs. The bound: keys, permutation and
+    rows read once, each distinct key's output row read and written."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    out = prior.clone()
+    parts = list(out.split(part_rows))
+    plain_out = prior.clone()
+    plain_parts = list(plain_out.split(part_rows))
+    lib_out = prior.clone()
+    keys64, srows = keys.long(), rows.index_select(0, order)
     chk.times["sorted_accum"] = (
-        time_ms(lambda: HE.sorted_accum(keys, rows, torch.zeros(shape, device=keys.device))),
-        time_ms(lambda: HE.sorted_accum_plain(keys, rows, torch.zeros(shape, device=keys.device))))
-    chk.library["sorted_accum"] = time_ms(
-        lambda: torch.zeros(shape, device=keys.device).index_add_(0, keys.long(), rows))
-    chk.bounds["sorted_accum"] = bound(keys.numel() * 4 + rows.numel() * 4
-                                       + shape[0] * shape[1] * 4, rows.numel())
+        time_ms(lambda: HE.sorted_accum(keys, rows, parts, order)),
+        time_ms(lambda: HE.sorted_accum_plain(keys, rows, plain_parts, order)))
+    chk.library["sorted_accum"] = time_ms(lambda: lib_out.index_add_(0, keys64, srows))
+    runs = torch.unique_consecutive(keys, return_counts=True)[1]
+    n, C = rows.shape
+    chk.bounds["sorted_accum"] = bound(n * 4 + n * 8 + n * C * 4 + 2 * runs.numel() * C * 4,
+                                       n * C)
+    unsorted = torch.empty_like(keys)
+    unsorted[order] = keys
+    unsorted64 = unsorted.long()
+
+    def chain():
+        k, o = torch.sort(unsorted, stable=True)
+        HE.sorted_accum(k, rows, parts, o)
+
+    reps = 10
+    by_kernel = {name: 0.0 for name in KERNEL_GLOBALS["sorted_accum"]}
+    for e in device_events(lambda: HE.sorted_accum(keys, rows, parts, order), reps):
+        for name in by_kernel:
+            if name in e.name:
+                by_kernel[name] += (e.time_range.end - e.time_range.start) / reps / 1e3
+    chain_ms = time_ms(chain)
+    lib_unsorted_ms = time_ms(lambda: lib_out.index_add_(0, unsorted64, rows))
     k_ms, p_ms = chk.times["sorted_accum"]
-    print(f"  sorted_accum on training keys: {runs.numel()} runs of {keys.numel()} rows, longest "
-          f"{int(runs.max())}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ "
-          f"{chk.library['sorted_accum']:.4f} ms, bound {chk.bounds['sorted_accum'][0]:.4f} ms")
+    b_ms = chk.bounds["sorted_accum"][0]
+    print(f"  sorted_accum{label}: {runs.numel()} runs of {n} rows of {C}, longest "
+          f"{int(runs.max())}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ (sorted "
+          f"rows) {chk.library['sorted_accum']:.4f} ms, bound {b_ms:.4f} ms ({b_ms / k_ms:.3f} "
+          f"of it); torch.sort + kernel {chain_ms:.4f} ms vs index_add_ on the unsorted pairs "
+          f"{lib_unsorted_ms:.4f} ms; by kernel: "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in by_kernel.items()))
+
+
+def hash_tables(tree):
+    """The hash tables (leaves under a 'hash_table' key) of a parameter tree."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            if key == "hash_table":
+                yield from (value if isinstance(value, (list, tuple)) else [value])
+            else:
+                yield from hash_tables(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from hash_tables(value)
 
 
 def train_phase(aabbs, cent, cams, chk: Checker):
-    """Phase 7. Returns (trainer, launches on the training path, problems)."""
+    """Phase 7. Returns (trainer, launches on the training path, {kernel:
+    (device ms, launches) of the profiled step}, problems)."""
     from presight_tpu_torch import kernels
     from presight_tpu_torch.configs import tile_trainer_config
     from presight_tpu_torch.data.device_store import DeviceRayStore
@@ -737,16 +829,44 @@ def train_phase(aabbs, cent, cams, chk: Checker):
         if launches[name] <= 0:
             problems.append(f"{name} was not launched on the training path")
     if recorded:
-        time_sorted_accum(recorded, chk)
+        keys, order, rows = recorded["keys"], recorded["order"], recorded["rows"]
+        prior = prior_gradient(keys, order, rows, recorded["parts"] * recorded["part_rows"])
+        check_sorted_accum(chk, f"training keys N={keys.numel()} C={rows.shape[1]} "
+                           f"T={recorded['parts']}x{recorded['part_rows']}", keys, order, rows,
+                           prior, recorded["part_rows"])
+        time_sorted_accum(chk, keys, order, rows, prior, recorded["part_rows"],
+                          " on training keys")
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in recorded.items()},
+                   OUT_DIR / "k5_training_pairs.pt")
         problems += chk.failures
-    profile_device("profiled step", lambda: trainer.train(num_steps=1), "train_profile.txt")
-    return trainer, launches, problems
+    # The tables' gradients come from K5 adding into .grad: their
+    # AccumulateGrad nodes must never run.
+    fired = []
+    hooks = [t.register_post_accumulate_grad_hook(lambda t: fired.append(t))
+             for t in hash_tables(trainer.model.params())]
+    kernels.reset_launches()
+    step_profile = profile_device("profiled step", lambda: trainer.train(num_steps=1),
+                                  "train_profile.txt")
+    step_launches = dict(kernels.LAUNCHES)
+    for h in hooks:
+        h.remove()
+    print(f"  profiled step: AccumulateGrad ran {len(fired)} times on the {len(hooks)} hash "
+          f"tables -> {'ok' if not fired else 'FAIL'}")
+    if fired:
+        problems.append(f"AccumulateGrad ran {len(fired)} times on the hash tables")
+    step = {name: (step_profile[name][0], step_launches[name]) for name in KERNEL_INFO}
+    return trainer, launches, step, problems
 
 
 def profile_device(label, fn, out_name):
     """fn() under torch.profiler: the device's busy time and idle share of
-    the traced wall time, the device time of K2's and K2b's kernels, and
-    the table of device time by kernel (written to OUT_DIR / out_name)."""
+    the traced wall time; the device time and kernel launches of each kernel
+    of KERNEL_INFO (by its __global__ names, KERNEL_GLOBALS) and of memsets;
+    the device time of the hash backward's and AccumulateGrad's autograd
+    nodes (the kernels they launch); and the table of device time by op
+    (written to OUT_DIR / out_name). Returns {kernel: (device ms, kernel
+    launches)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -764,22 +884,29 @@ def profile_device(label, fn, out_name):
             end = b
     print(f"  {label}: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
           f"idle share {1.0 - busy / 1e6 / wall:.3f}")
-    mlp = {}
+    by_kernel = {name: [0.0, 0] for name in [*KERNEL_INFO, "memset"]}
     for e in events:
-        for kernel in ("mlp_blocks_fwd_kernel", "mlp_blocks_bwd_kernel",
-                       "mlp_blocks_bwd_reduce_kernel"):
-            if kernel in e.name:
-                ms, calls = mlp.get(kernel, (0.0, 0))
-                mlp[kernel] = (ms + (e.time_range.end - e.time_range.start) / 1e3, calls + 1)
-    for kernel, (ms, calls) in mlp.items():
-        print(f"  {label}: {kernel} {ms:.3f} ms in {calls} launches "
+        name = next((k for k, names in KERNEL_GLOBALS.items() if any(g in e.name for g in names)),
+                    "memset" if "Memset" in e.name else None)
+        if name is not None:
+            by_kernel[name][0] += (e.time_range.end - e.time_range.start) / 1e3
+            by_kernel[name][1] += 1
+    for name, (ms, calls) in by_kernel.items():
+        print(f"  {label}: {name} {ms:.3f} ms device time in {calls} kernel launches "
               f"({ms / 1e3 / max(busy / 1e6, 1e-12):.3f} of device busy)")
+    for avg in prof.key_averages():
+        if "evaluate_function" in avg.key and ("_HashEncodeBackward" in avg.key
+                                               or "AccumulateGrad" in avg.key):
+            dev_us = getattr(avg, "device_time_total", None)
+            dev_us = avg.cuda_time_total if dev_us is None else dev_us
+            print(f"  {label}: {avg.key}: {dev_us / 1e3:.3f} ms device time in {avg.count} calls")
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
     out = OUT_DIR / out_name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(table)
     for line in table.splitlines()[:30]:
         print("   ", line)
+    return {name: tuple(v) for name, v in by_kernel.items()}
 
 
 def _to_cpu(obj):
@@ -1105,7 +1232,7 @@ def main() -> int:
 
     # Phase 7: train, counted.
     print("phase 7: train")
-    trainer, train_launches, problems = train_phase(aabbs, cent, cams, chk)
+    trainer, train_launches, step, problems = train_phase(aabbs, cent, cams, chk)
     if problems:
         print("phase 7 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
@@ -1123,7 +1250,8 @@ def main() -> int:
          "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
          "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
          "plain_ms": chk.times[name][1], "bound_ms": chk.bounds[name][0],
-         "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name)}
+         "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name),
+         "step_ms": step[name][0], "step_launches": step[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

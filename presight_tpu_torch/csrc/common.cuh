@@ -31,6 +31,27 @@ static inline unsigned int ceil_div64(int64_t a, int64_t b) {
   return (unsigned int)((a + b - 1) / b);
 }
 
+// ---- asynchronous copies into shared memory (K2, K2b, K3b, K5) ----
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
+}
+
 // ---- hash grid (K1, K1b) ----
 
 constexpr int kMaxLevels = 16;

@@ -6,16 +6,16 @@
 // emits as a scatter-add, and the sort-then-scatter of
 // _gather_rows_sorted_grad (:181-213). The port does the same
 // sort-then-reduce: this kernel writes (key, row) pairs, torch.sort orders
-// the keys stably, the rows are gathered into that order and K5
-// (sorted_accum.cu) sums each run into the gradient. For a table gradient
+// the keys stably, and K5 (sorted_accum.cu) reads the rows through the
+// sort's permutation and adds each run to the gradient. For a table gradient
 // dT[key] += w_c * g[sample, level, :]:
 //   storage 0 'corner': 8 rows of F per (sample, level), key
 //                       e * L * T + l * T + hash(corner) (ceil corners);
 //   storage 1 'cell'  : one 8F row [w_0 g | ... | w_7 g] per (sample,
 //                       level), key e * L * T + l * T + hash(floor);
-//   storage 2 'shared': as 'cell' with key l * T + (hash ^ expert mix), the
-//                       level offset folded into one flat (L * T, 8F)
-//                       gradient that the caller hands out per level.
+//   storage 2 'shared': as 'cell' with key l * T + (hash ^ expert mix); K5
+//                       adds key l * T + row to row `row` of level l's
+//                       table gradient.
 // The index and the trilinear weights are recomputed bit for bit as K1
 // computes them (__fmul_rn scaling, ceilf for 'corner', uint32 hash).
 //

@@ -209,25 +209,6 @@ __device__ __forceinline__ void with_n8(int n8, F f) {
 __device__ __forceinline__ float relu(float v) { return v > 0.0f ? v : 0.0f; }
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
-}
-
 // Floats that layer l's weights and bias take in the staging area (a
 // multiple of 4, so every layer starts 16-byte aligned).
 __host__ __device__ inline int staged_floats(const MlpLayers& p, int l) {

@@ -18,27 +18,38 @@
 //   dsigma_j = delta_j (gw_j T_j exp(-dd_j) - sum_{s>j} gw_s alpha_s T_s);
 //   dpayload[row(s)] = w_s dL/dcomposite (each padded row is read by at
 //   most one sample, so it is written without atomics; rows no sample
-//   reads are left as the caller zeroed them).
+//   reads are zero).
 //
 // What bounds it on an H100: device memory. Per sample it reads delta,
 // sigma, t, w, dL/dw and its payload row and writes dsigma and the payload
 // row's gradient; a few tens of FLOPs per sample.
 //
-// Design: one warp per ray, as K3. Lanes take consecutive samples. Pass 1
-// recomputes the exclusive prefix of dd with K3's warp scan (so T_s is
-// K3's) and the sums a and b in K3's order (so the expected depth, and a
-// tie with the clip bounds, are K3's). Pass 2 takes the samples one by one,
-// the lanes spread over payload channels (coalesced): the dot product with
-// dL/dcomposite is a warp sum and the payload gradient row is written in
-// the same sweep. Pass 3 runs over the samples from the last chunk to the
-// first with a reverse warp scan and a carry, for the suffix sums.
+// Design (v2): one warp per ray, as K3, and up to four rays per CUDA
+// block. Each warp first starts cp.async copies of its ray's S payload rows
+// (through payload_index; 48 x 67 floats, 12.9 KB on the main path) and of
+// dL/dcomposite into shared memory, all in flight at once, so a block keeps
+// ~50 KB of loads outstanding. While they fly, pass 1 recomputes the
+// exclusive prefix of dd with K3's warp scan (so T_s is K3's) and the sums
+// a and b in K3's order (so the expected depth, and a tie with the clip
+// bounds, are K3's). Pass 2 gives each lane its own samples: the dot
+// product of a payload row with dL/dcomposite runs over the staged row in
+// shared memory (row stride C; an odd C, 67 on the main path, puts the 32
+// lanes' rows in 32 different banks), with no warp reduction. The payload
+// gradient rows are written from shared memory with the lanes over the
+// flattened (sample, channel) index, so consecutive lanes write
+// consecutive floats of a row. Pass 3 runs over the samples from the last
+// chunk to the first with a reverse warp scan and a carry, for the suffix
+// sums. Rows of d_payload that no sample reads (padding slots) are zeroed
+// by one memset in the same call. The weights-only launch (proposal
+// rounds) runs passes 1 and 3.
 #include <float.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kMaxRays = 4;              // rays (warps) per CUDA block
+constexpr int kSmemLimit = 232448;       // dynamic shared memory a block may use
 
 __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   // d/dx min(max(x, lo), hi) as JAX differentiates it (0.5 at a tie).
@@ -48,7 +59,23 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   return a * b;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Floats of shared memory per ray: T_s, gw_s, w_s, and with a payload the
+// row index of each sample, dL/dcomposite and the S x C payload rows.
+__host__ __device__ __forceinline__ int ray_smem_floats(int S, int C, bool with_payload) {
+  return 3 * S + (with_payload ? S + C + S * C : 0);
+}
+
+// Advance a flattened (sample, channel) index by 32: s += 32 / C, c += 32 % C.
+__device__ __forceinline__ void step32(int& s, int& c, int q, int rem, int C) {
+  s += q;
+  c += rem;
+  if (c >= C) {
+    c -= C;
+    ++s;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxRays * 32)
 volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restrict__ density,
                          const float* __restrict__ steps, const float* __restrict__ clip,
                          const float* __restrict__ payload,
@@ -59,11 +86,32 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
                          float* __restrict__ d_density, float* __restrict__ d_payload) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (r >= R) return;  // whole warps exit together; only __syncwarp below
-  float* trans_s = smem + warp * S;               // T_s
-  float* gw_s = smem + (kWarps + warp) * S;       // dL/dw_s, then gw_s alpha_s T_s
+  const bool with_payload = payload != nullptr;
+  float* trans_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload);  // T_s
+  float* gw_s = trans_s + S;  // dL/dw_s, then gw_s
+  float* w_s = gw_s + S;      // w_s
+  int32_t* row_s = reinterpret_cast<int32_t*>(w_s + S);  // payload row of each sample
+  float* gc_s = w_s + 2 * S;  // dL/dcomposite of the ray
+  float* tile_s = gc_s + C;   // the ray's payload rows, S x C
   const int64_t base = r * S;
+  const int q = with_payload ? 32 / C : 0, rem = with_payload ? 32 % C : 0;
+
+  // Start the copies of the payload rows and of dL/dcomposite.
+  if (with_payload) {
+    for (int s = lane; s < S; s += 32) {
+      row_s[s] = payload_index != nullptr ? payload_index[base + s] : (int32_t)(base + s);
+    }
+    for (int c = lane; c < C; c += 32) cp_async4(gc_s + c, g_comp + r * C + c);
+    __syncwarp();
+    int s = lane / C, c = lane % C;
+    for (int k = lane; k < S * C; k += 32) {
+      cp_async4(tile_s + k, payload + (int64_t)row_s[s] * C + c);
+      step32(s, c, q, rem, C);
+    }
+    cp_async_commit();
+  }
 
   // Pass 1: transmittance, and K3's sums for the expected depth.
   float carry = 0.0f, wsum = 0.0f, wtsum = 0.0f;
@@ -79,10 +127,13 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
       gw_s[s] = g_w[base + s];
     }
     carry += __shfl_sync(kFullMask, inc, 31);
-    if (steps != nullptr && valid) {
+    if (valid && (steps != nullptr || with_payload)) {
       const float w = weights[base + s];
-      wsum += w;
-      wtsum += w * steps[base + s];
+      w_s[s] = w;
+      if (steps != nullptr) {
+        wsum += w;
+        wtsum += w * steps[base + s];
+      }
     }
   }
   float ge = 0.0f, inv_b = 0.0f, a_over_b2 = 0.0f;
@@ -94,28 +145,30 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
     inv_b = 1.0f / b;
     a_over_b2 = wtsum / (b * b);
   }
+  if (with_payload) cp_async_wait<0>();
   __syncwarp();
 
-  // Pass 2: gradient of each weight; the payload rows' gradients.
-  for (int s = 0; s < S; ++s) {
-    float dot = 0.0f;
-    if (payload != nullptr) {
-      const int64_t row = payload_index != nullptr ? payload_index[base + s] : base + s;
-      const float w = weights[base + s];
-      for (int c = lane; c < C; c += 32) {
-        const float gc = g_comp[r * C + c];
-        dot += gc * payload[row * C + c];
-        d_payload[row * C + c] = w * gc;
-      }
-      dot = warp_sum(dot);
+  // Pass 2: each lane the gradient of its own samples' weights.
+  for (int s = lane; s < S; s += 32) {
+    float gw = gw_s[s];
+    if (with_payload) {
+      const float* row = tile_s + s * C;
+      float dot = 0.0f;
+      for (int c = 0; c < C; ++c) dot += gc_s[c] * row[c];
+      gw += dot;
     }
-    if (lane == 0) {
-      float gw = gw_s[s] + dot;
-      if (steps != nullptr) {
-        gw += g_acc[r];
-        gw += ge * steps[base + s] * inv_b - ge * a_over_b2;
-      }
-      gw_s[s] = gw;
+    if (steps != nullptr) {
+      gw += g_acc[r];
+      gw += ge * steps[base + s] * inv_b - ge * a_over_b2;
+    }
+    gw_s[s] = gw;
+  }
+  // The payload rows' gradients, consecutive lanes on consecutive floats.
+  if (with_payload) {
+    int s = lane / C, c = lane % C;
+    for (int k = lane; k < S * C; k += 32) {
+      d_payload[(int64_t)row_s[s] * C + c] = w_s[s] * gc_s[c];
+      step32(s, c, q, rem, C);
     }
   }
   __syncwarp();
@@ -126,7 +179,7 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
   for (int s0 = last0; s0 >= 0; s0 -= 32) {
     const int s = s0 + lane;
     const bool valid = s < S;
-    float gw = 0.0f, q = 0.0f, e_dd = 0.0f, delta = 0.0f;
+    float gw = 0.0f, qv = 0.0f, e_dd = 0.0f, delta = 0.0f;
     if (valid) {
       delta = deltas[base + s];
       const float dd = __fmul_rn(delta, density[base + s]);
@@ -135,11 +188,11 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
       const float alpha = __fsub_rn(1.0f, e_dd);
       const float w_raw = __fmul_rn(alpha, T);
       gw = isfinite(w_raw) ? gw_s[s] : 0.0f;
-      q = gw * alpha * T;
+      qv = gw * alpha * T;
       gw *= T * e_dd;
     }
-    // Reverse inclusive scan of q over the lanes, then shift by one lane.
-    float v = q;
+    // Reverse inclusive scan of qv over the lanes, then shift by one lane.
+    float v = qv;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float u = __shfl_down_sync(kFullMask, v, off);
@@ -155,23 +208,33 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
 }  // namespace
 
 // steps, clip, g_acc and g_exp are null together (weights only); payload,
-// g_comp and d_payload are null together; payload_index may be null (rows in
-// sample order). clip is a device pointer to {min, max} of steps.
+// g_comp and d_payload are null together (P payload rows of C floats);
+// payload_index may be null (rows in sample order). clip is a device pointer
+// to {min, max} of steps. d_payload is zeroed here, then written.
 PTK_EXPORT int volume_render_bwd(const float* deltas, const float* density, const float* steps,
                                  const float* clip, const float* payload,
                                  const int32_t* payload_index, const float* weights,
                                  const float* g_w, const float* g_acc, const float* g_exp,
-                                 const float* g_comp, int64_t R, int S, int C,
+                                 const float* g_comp, int64_t R, int S, int C, int64_t P,
                                  float* d_density, float* d_payload, void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
+  const bool with_payload = payload != nullptr;
+  if (S < 1 || (with_payload && C < 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (with_payload) {
+    cudaError_t err = cudaMemsetAsync(d_payload, 0, (size_t)P * C * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (R == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)2 * kWarps * S * sizeof(float);
+  int rays = kMaxRays;
+  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload) * sizeof(float);
+  while (rays > 1 && rays * per_ray > (size_t)kSmemLimit) rays /= 2;
+  if (rays * per_ray > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;  // S x C too large
+  const size_t smem = rays * per_ray;
   cudaError_t err = cudaFuncSetAttribute(volume_render_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  volume_render_bwd_kernel<<<ceil_div64(R, kWarps), kWarps * 32, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  volume_render_bwd_kernel<<<ceil_div64(R, rays), rays * 32, smem, st>>>(
       deltas, density, steps, clip, payload, payload_index, weights, g_w, g_acc, g_exp, g_comp,
       R, S, C, d_density, d_payload);
   return (int)cudaGetLastError();

@@ -4,10 +4,16 @@ runs ray generation, ``forward(train=True)``, ``compute_losses`` and the
 backward pass with its own draws; gradients, losses and the mse are
 averaged over the microbatches; then one optimizer and scheduler step.
 
-Autograd adds each microbatch's dense gradients into ``.grad`` in order,
-and the sum is scaled by 1/k at the end, as the JAX scan adds its carried
-gradients and scales them once. ``stop_prop_grad`` is an argument: the JAX
-package compiles one step per value.
+Each microbatch's ``.backward()`` adds its gradients into ``.grad`` in
+order, and the sum is scaled by 1/k at the end, as the JAX scan adds its
+carried gradients and scales them once. The hash tables' gradients arrive
+the same way but not through autograd's AccumulateGrad: the hash
+encoding's backward (K5) adds them into the tables' ``.grad`` itself,
+allocating it at the first microbatch, since ``.grad`` is set to None here
+(ops/hash_encoding.py). So the step must call ``.backward()`` (not
+``torch.autograd.grad``), and a hook on the tables never runs.
+``stop_prop_grad`` is an argument: the JAX package compiles one step per
+value.
 """
 
 from __future__ import annotations

@@ -61,11 +61,12 @@ _ARGTYPES = {
     "mlp_blocks_bwd": [_P, _P, _P, _I64, _I64, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                        _P, _P],
     # deltas, density, steps, clip, payload, payload_index, weights, g_w,
-    # g_acc, g_exp, g_comp, R, S, C, d_density, d_payload, stream
-    "volume_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+    # g_acc, g_exp, g_comp, R, S, C, P, d_density, d_payload, stream
+    "volume_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64,
                           _P, _P, _P],
-    # keys, rows, n, C, out, scratch, flags, stream
-    "sorted_accum": [_P, _P, _I64, _I, _P, _P, _P, _P],
+    # keys, order, rows, n, C, out parts (host array), num_parts, part_rows,
+    # vec, scratch, flags, stream
+    "sorted_accum": [_P, _P, _P, _I64, _I, _P, _I, _I64, _I, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,13 +4,24 @@
 forward is kernel K1 (csrc/hash_encode.cu); its backward is kernel K1b
 (csrc/hash_encode_bwd.cu), which writes one cotangent row and key per
 (sample, level) (per corner for 'corner'), then a stable ``torch.sort`` of
-the keys, a gather of the rows into that order, and kernel K5
-(csrc/sorted_accum.cu), which sums each run of equal keys into the dense
-table gradient -- the sort-then-reduce design of the JAX package's
+the keys, and kernel K5 (csrc/sorted_accum.cu), which reads the rows
+through the sort's permutation and adds each run of equal keys to the
+tables' gradient -- the sort-then-reduce design of the JAX package's
 ``_gather_rows_sorted_grad``. Each kernel's wrapper launches it on CUDA
 tensors and runs its plain PyTorch version on CPU tensors. The plain
 versions hash in int64 with each prime product masked to 32 bits, which
 equals the reference's uint32 wraparound modulo the table size.
+
+The table gradient's contract: K5 adds it straight into each table's
+``.grad`` (allocating zeros only where ``.grad`` is None). The tables are
+not inputs of the autograd graph: the Function takes them in a list, which
+autograd does not track, and a zero-size leaf that requires grad makes its
+output require grad. So the gradients arrive through ``.backward()``, which
+accumulates them into ``.grad`` as autograd would; they do not arrive
+through ``torch.autograd.grad`` on the tables (which finds the tables
+unused), and the tables' AccumulateGrad nodes, and any hooks on the tables,
+never run. The tables must be leaf tensors. This spares every backward a
+dense zero fill and an AccumulateGrad pass over the whole table.
 
 Positions get no gradient (the sample bins are stop-gradient and camera
 optimisation is off): the Function raises if they require one.
@@ -46,7 +57,7 @@ _CORNER_BITS = np.array(
 )
 
 _STORAGES = {"corner": 0, "cell": 1, "shared": 2}
-_SORTED_ACCUM_SEGMENT = 64  # rows per segment of K5 (kSeg in csrc/sorted_accum.cu)
+_SORTED_ACCUM_TILE = 64  # sorted rows per tile of K5 (kRowsPerTile in csrc/sorted_accum.cu)
 
 Table = Union[torch.Tensor, List[torch.Tensor]]
 
@@ -260,72 +271,110 @@ def hash_encode_bwd(positions: torch.Tensor, config: HashEncodingConfig,
     return keys, rows
 
 
-def sorted_accum_plain(keys: torch.Tensor, rows: torch.Tensor, out: torch.Tensor) -> None:
-    """Plain version of K5: out[key] += sum of each run of equal keys, over
-    rows sorted by key (a segment sum over sorted keys)."""
+def _out_parts(out: Table) -> List[torch.Tensor]:
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def sorted_accum_plain(keys: torch.Tensor, rows: torch.Tensor, out: Table,
+                       order: Optional[torch.Tensor] = None) -> None:
+    """Plain version of K5 (see sorted_accum for the contract)."""
+    if keys.numel() == 0:
+        return
+    parts = _out_parts(out)
+    part_rows = parts[0].shape[0]
+    if order is not None:
+        rows = rows[order]
     uniq, counts = torch.unique_consecutive(keys, return_counts=True)
-    out[uniq.long()] += torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+    sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+    uniq = uniq.long()
+    if int(uniq[-1]) >= len(parts) * part_rows:
+        raise ValueError("sorted_accum: a key lies past the output's rows")
+    for p, part in enumerate(parts):
+        sel = (uniq >= p * part_rows) & (uniq < (p + 1) * part_rows)
+        part[uniq[sel] - p * part_rows] += sums[sel]
 
 
-def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: torch.Tensor) -> None:
-    """Wrapper of K5: accumulate the runs of ``keys`` (int32, sorted
-    ascending) over ``rows`` (n, C) into ``out`` (T, C), in place."""
+def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: Table,
+                 order: Optional[torch.Tensor] = None) -> None:
+    """Wrapper of K5: for each run of equal ``keys`` (int32, sorted
+    ascending), add the sum of its rows to the output row of that key, in
+    place. Sorted row i is ``rows[order[i]]`` (``order``: the int64 indices
+    of ``torch.sort``), or ``rows[i]`` without ``order``. ``out`` is one
+    (T, C) tensor, or a list of P (T, C) tensors of which part p holds keys
+    [p T, (p + 1) T) (the 'shared' storage's level tables). The output is
+    accumulated into and never zeroed."""
     if rows.device.type == "cpu":
-        return sorted_accum_plain(keys, rows, out)
+        return sorted_accum_plain(keys, rows, out, order)
+    parts = _out_parts(out)
+    if keys.dtype != torch.int32 or rows.dtype != torch.float32:
+        raise TypeError("sorted_accum: int32 keys and float32 rows expected")
     n = keys.shape[0]
-    if keys.dtype != torch.int32 or rows.dtype != torch.float32 or out.dtype != torch.float32:
-        raise TypeError("sorted_accum: int32 keys and float32 rows and output expected")
-    if rows.dim() != 2 or rows.shape[0] != n or out.dim() != 2 or out.shape[1] != rows.shape[1]:
-        raise ValueError("sorted_accum: keys (n,), rows (n, C) and out (T, C) expected")
-    kernels.require_cuda("sorted_accum", keys, rows, out)
-    num_seg = -(-n // _SORTED_ACCUM_SEGMENT)
-    scratch = torch.empty((2 * num_seg, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    flags = torch.empty((num_seg,), dtype=torch.uint8, device=rows.device)
-    code = kernels.lib().sorted_accum(keys.data_ptr(), rows.data_ptr(), n, rows.shape[1],
-                                      out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-                                      kernels.stream())
+    if keys.dim() != 1 or rows.dim() != 2 or (order is None and rows.shape[0] != n):
+        raise ValueError("sorted_accum: keys (n,) and rows (n, C) expected")
+    if order is not None and (order.dtype != torch.int64 or order.shape != (n,)):
+        raise ValueError("sorted_accum: order must be int64 (n,)")
+    C = rows.shape[1]
+    if not 1 <= len(parts) <= 16 or any(
+            p.dtype != torch.float32 or p.shape != (parts[0].shape[0], C) for p in parts):
+        raise ValueError("sorted_accum: 1 to 16 float32 output parts of one (T, C) shape expected")
+    extra = [] if order is None else [order]
+    kernels.require_cuda("sorted_accum", keys, rows, *parts, *extra)
+    vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in [rows, *parts]) else 1
+    num_tiles = -(-n // _SORTED_ACCUM_TILE)
+    scratch = torch.empty((2 * num_tiles, C), dtype=torch.float32, device=rows.device)
+    flags = torch.empty((num_tiles,), dtype=torch.uint8, device=rows.device)
+    code = kernels.lib().sorted_accum(
+        keys.data_ptr(), kernels.ptr(order), rows.data_ptr(), n, C,
+        kernels.host_ptrs([t.data_ptr() for t in parts]), len(parts), parts[0].shape[0], vec,
+        scratch.data_ptr(), flags.data_ptr(), kernels.stream())
     kernels.check("sorted_accum", code)
     kernels.LAUNCHES["sorted_accum"] += 1
 
 
 def table_grad(positions: torch.Tensor, config: HashEncodingConfig,
-               expert_ids: Optional[torch.Tensor], grad: torch.Tensor,
-               num_rows: int) -> torch.Tensor:
-    """Dense table gradient (num_rows, row width): K1b's (key, row) pairs,
-    a stable sort of the keys, the rows gathered into that order, K5."""
+               expert_ids: Optional[torch.Tensor], grad: torch.Tensor, out: Table) -> None:
+    """Add the table gradient of hash_encode to ``out`` in place: the
+    (E * L * T, row) gradient, or for 'shared' storage the list of the L
+    (T, 8F) level gradients (K5 takes one base pointer per level; a key is
+    l * T + row). K1b's (key, row) pairs, a stable sort of the keys, and K5
+    reading the rows through the sort's permutation."""
     keys, rows = hash_encode_bwd(positions, config, expert_ids, grad)
     keys, order = torch.sort(keys, stable=True)
-    out = torch.zeros((num_rows, rows.shape[1]), dtype=rows.dtype, device=rows.device)
-    sorted_accum(keys, rows.index_select(0, order), out)
-    return out
+    sorted_accum(keys, rows, out, order)
 
 
 class _HashEncode(torch.autograd.Function):
+    """K1 forward; the backward adds the table gradient to the tables'
+    ``.grad`` itself (see the module docstring). ``tables`` is a list, out
+    of autograd's sight; ``token`` is the zero-size leaf that makes the
+    output require grad."""
+
     @staticmethod
-    def forward(ctx, positions, expert_ids, config, *tables):
-        table = list(tables) if config.storage == "shared" else tables[0]
+    def forward(ctx, positions, expert_ids, config, tables, token):
         ctx.config = config
-        ctx.num_rows = sum(t.shape[0] for t in tables)
+        ctx.tables = tables
         ctx.save_for_backward(positions, expert_ids)
-        return hash_encode_fwd(table, positions, config, expert_ids)
+        return hash_encode_fwd(tables if config.storage == "shared" else tables[0], positions,
+                               config, expert_ids)
 
     @staticmethod
     def backward(ctx, grad):
         positions, expert_ids = ctx.saved_tensors
-        config = ctx.config
-        flat = table_grad(positions, config, expert_ids, grad.contiguous(), ctx.num_rows)
-        if config.storage == "shared":
-            grads = flat.split(config.table_size)
-        else:
-            grads = (flat,)
-        return (None, None, None, *grads)
+        grads = []
+        for t in ctx.tables:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+            grads.append(t.grad)
+        table_grad(positions, ctx.config, expert_ids, grad.contiguous(),
+                   grads if ctx.config.storage == "shared" else grads[0])
+        return None, None, None, None, None
 
 
 def hash_encode(table: Table, positions: torch.Tensor, config: HashEncodingConfig,
                 expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Hash lookup + trilinear blend, positions (..., 3) in [0, 1] ->
     (..., L * F), differentiable in the tables (K1 forward; K1b, sort and K5
-    backward)."""
+    backward, into the tables' ``.grad``: see the module docstring)."""
     if positions.requires_grad:
         raise ValueError("hash_encode: positions carry no gradient on this path")
     shape = positions.shape[:-1]
@@ -333,7 +382,10 @@ def hash_encode(table: Table, positions: torch.Tensor, config: HashEncodingConfi
     eids = None if expert_ids is None else expert_ids.reshape(-1)
     tables = list(table) if config.storage == "shared" else [table]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        out = _HashEncode.apply(pos, eids, config, *tables)
+        if not all(t.requires_grad and t.is_leaf for t in tables):
+            raise ValueError("hash_encode: the tables' gradients go to .grad, so every table "
+                             "must be a leaf that requires grad")
+        out = _HashEncode.apply(pos, eids, config, tables, pos.new_empty(0).requires_grad_())
     else:
         out = hash_encode_fwd(tables if config.storage == "shared" else table, pos, config, eids)
     return out.reshape(*shape, out.shape[-1])

@@ -81,12 +81,20 @@ def volume_render_plain(deltas: torch.Tensor, density: torch.Tensor,
     return out
 
 
+def step_bounds(steps: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """{min, max} of the batch's steps, the expected depth's clip bounds
+    (one device tensor, so the kernels read them without a host sync)."""
+    return None if steps is None else torch.stack(torch.aminmax(steps))
+
+
 def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
                       steps: Optional[torch.Tensor] = None,
                       payload: Optional[torch.Tensor] = None,
                       payload_index: Optional[torch.Tensor] = None,
-                      threshold: float = 0.5) -> Dict[str, torch.Tensor]:
-    """Wrapper of K3 (see volume_render_plain for the contract)."""
+                      threshold: float = 0.5,
+                      clip: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Wrapper of K3 (see volume_render_plain for the contract); ``clip``:
+    step_bounds(steps), computed here when not given."""
     if deltas.device.type == "cpu":
         return volume_render_plain(deltas, density, steps, payload, payload_index,
                                    threshold)
@@ -117,9 +125,9 @@ def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
     kernels.require_cuda("volume_render", *tensors)
     device = deltas.device
     out = {"weights": torch.empty((r, s), dtype=torch.float32, device=device)}
-    clip = None
     if steps is not None:
-        clip = torch.stack(torch.aminmax(steps))
+        if clip is None:
+            clip = step_bounds(steps)
         for key in ("accumulation", "depth", "expected_depth"):
             out[key] = torch.empty((r,), dtype=torch.float32, device=device)
     if payload is not None:
@@ -189,15 +197,22 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
                       steps: Optional[torch.Tensor], payload: Optional[torch.Tensor],
                       payload_index: Optional[torch.Tensor], weights: torch.Tensor,
                       g_weights: torch.Tensor, g_acc: Optional[torch.Tensor],
-                      g_expected: Optional[torch.Tensor], g_composite: Optional[torch.Tensor]):
-    """Wrapper of K3b (see volume_render_bwd_plain for the contract)."""
+                      g_expected: Optional[torch.Tensor], g_composite: Optional[torch.Tensor],
+                      clip: Optional[torch.Tensor] = None):
+    """Wrapper of K3b (see volume_render_bwd_plain for the contract);
+    ``clip``: step_bounds(steps) as the forward used it, computed here when
+    not given. The kernel zeroes the payload rows no sample reads."""
     if deltas.device.type == "cpu":
         return volume_render_bwd_plain(deltas, density, steps, payload, payload_index, weights,
                                        g_weights, g_acc, g_expected, g_composite)
     r, s = deltas.shape
     tensors = [deltas, density, weights, g_weights]
     if steps is not None:
-        tensors += [steps, g_acc, g_expected]
+        if clip is None:
+            clip = step_bounds(steps)
+        if clip.shape != (2,):
+            raise ValueError("volume_render_bwd: clip must be {min, max} of the steps")
+        tensors += [steps, g_acc, g_expected, clip]
     c = 0
     if payload is not None:
         c = payload.shape[1]
@@ -210,15 +225,14 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
         if t is not payload_index and t.dtype != torch.float32:
             raise TypeError("volume_render_bwd: expected float32 inputs")
     kernels.require_cuda("volume_render_bwd", *tensors)
-    clip = None if steps is None else torch.stack(torch.aminmax(steps))
     d_density = torch.empty_like(density)
-    d_payload = None if payload is None else torch.zeros_like(payload)
+    d_payload = None if payload is None else torch.empty_like(payload)
     code = kernels.lib().volume_render_bwd(
         deltas.data_ptr(), density.data_ptr(), kernels.ptr(steps), kernels.ptr(clip),
         kernels.ptr(payload), kernels.ptr(payload_index), weights.data_ptr(),
         g_weights.data_ptr(), kernels.ptr(g_acc), kernels.ptr(g_expected),
-        kernels.ptr(g_composite), r, s, c, d_density.data_ptr(), kernels.ptr(d_payload),
-        kernels.stream())
+        kernels.ptr(g_composite), r, s, c, 0 if payload is None else payload.shape[0],
+        d_density.data_ptr(), kernels.ptr(d_payload), kernels.stream())
     kernels.check("volume_render_bwd", code)
     kernels.LAUNCHES["volume_render_bwd"] += 1
     return d_density, d_payload
@@ -227,21 +241,23 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
 class _VolumeRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, deltas, density, steps, payload, payload_index, threshold):
-        out = volume_render_fwd(deltas, density, steps, payload, payload_index, threshold)
-        ctx.save_for_backward(deltas, density, steps, payload, payload_index, out["weights"])
+        clip = step_bounds(steps)
+        out = volume_render_fwd(deltas, density, steps, payload, payload_index, threshold, clip)
+        ctx.save_for_backward(deltas, density, steps, payload, payload_index, out["weights"],
+                              clip)
         outs = tuple(out[key] if key in out else deltas.new_empty((0,)) for key in RENDER_KEYS)
         ctx.mark_non_differentiable(outs[2])
         return outs
 
     @staticmethod
     def backward(ctx, g_weights, g_acc, _g_depth, g_expected, g_composite):
-        deltas, density, steps, payload, payload_index, weights = ctx.saved_tensors
+        deltas, density, steps, payload, payload_index, weights, clip = ctx.saved_tensors
         with_steps, with_payload = steps is not None, payload is not None
         d_density, d_payload = volume_render_bwd(
             deltas, density, steps, payload, payload_index, weights, g_weights.contiguous(),
             g_acc.contiguous() if with_steps else None,
             g_expected.contiguous() if with_steps else None,
-            g_composite.contiguous() if with_payload else None)
+            g_composite.contiguous() if with_payload else None, clip)
         return None, d_density, None, d_payload, None, None
 
 

@@ -3,7 +3,8 @@ versions on the CPU, against jax.grad of the JAX function and against torch
 autograd of the port's plain forward:
 
   * hash encoding (K1b + sort + K5): table gradients, all three storages,
-    with and without experts;
+    with and without experts, and their accumulation into the tables'
+    .grad over two backward calls;
   * the grouped MLP (K2b): dX, dW and db, with and without the sigmoid
     epilogue, stacked experts on block-padded rows and one unstacked MLP;
   * volume rendering (K3b): the densities' and the payload rows' gradients
@@ -76,6 +77,56 @@ def test_hash_encode_table_grad_matches_jax(storage, with_experts):
     for a, b, r in zip(got, autograd, refs):
         _close(a, r, "vs jax.grad")
         _close(a, b, "vs autograd of the plain forward")
+
+
+@pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
+@pytest.mark.parametrize("storage", ["corner", "cell", "shared"])
+def test_hash_encode_grads_accumulate_in_tables(storage, with_experts):
+    """The table-gradient contract: two .backward() calls through
+    hash_encode add into the tables' .grad (K5 accumulates into it; the
+    first call allocates it), so it equals the sum of two jax.grads; the
+    tables' hooks never run, and torch.autograd.grad finds the tables
+    unused."""
+    kw = dict(num_levels=3, min_res=4, max_res=64, log2_hashmap_size=7,
+              features_per_level=2, storage=storage)
+    jcfg, tcfg = JH.HashEncodingConfig(**kw), HashEncodingConfig(**kw)
+    rng = np.random.RandomState(8)
+    num_experts = 3 if with_experts else 1
+    table = jax.tree_util.tree_map(np.asarray,
+                                   JH.init_hash_table(jax.random.PRNGKey(1), jcfg, num_experts))
+    n = 300
+    pos = [rng.rand(n, 3).astype(np.float32) for _ in range(2)]
+    eids = [rng.randint(0, num_experts, n).astype(np.int32) if with_experts else None
+            for _ in range(2)]
+    gs = [rng.randn(n, tcfg.out_dim).astype(np.float32) for _ in range(2)]
+
+    def jax_grad(p, e, g):
+        def loss(t):
+            out = JH.hash_encode(t, jnp.asarray(p), jcfg, None if e is None else jnp.asarray(e))
+            return jnp.sum(out * g)
+        return jax.jit(jax.grad(loss))(jax.tree_util.tree_map(jnp.asarray, table))
+
+    refs = [jax_grad(p, e, g) for p, e, g in zip(pos, eids, gs)]
+    refs = [refs[0], refs[1]] if storage == "shared" else [[refs[0]], [refs[1]]]
+    leaves = [torch.from_numpy(np.array(t)).requires_grad_() for t in
+              (table if storage == "shared" else [table])]
+    fired = []
+    for leaf in leaves:
+        leaf.register_hook(lambda g: fired.append(g))
+        leaf.register_post_accumulate_grad_hook(lambda t: fired.append(t))
+    arg = leaves if storage == "shared" else leaves[0]
+
+    def out(i):
+        return TH.hash_encode(arg, torch.from_numpy(pos[i]), tcfg,
+                              None if eids[i] is None else torch.from_numpy(eids[i]))
+
+    for i in range(2):
+        torch.sum(out(i) * torch.from_numpy(gs[i])).backward()
+    assert not fired
+    for leaf, r0, r1 in zip(leaves, refs[0], refs[1]):
+        _close(leaf.grad.numpy(), np.asarray(r0) + np.asarray(r1), "two backwards vs two jax.grads")
+    with pytest.raises(RuntimeError, match="not have been used"):
+        torch.autograd.grad(torch.sum(out(0)), leaves)
 
 
 def _blocked(rng, group_sizes, block):

@@ -10,7 +10,7 @@ forward's only at ties, and K2b is held against the plain backward on
 K2's own masks); K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
 rtol 1e-5; K1b keys exact, rows atol 1e-7 + rtol 1e-6; K5 and the table
 gradient atol 1e-5 + rtol 1e-5 (run sums in one order against
-segment_reduce's); K2b and K3b atol 1e-5 of the largest gradient + rtol
+segment_reduce's; two K5 calls bitwise equal); K2b and K3b atol 1e-5 of the largest gradient + rtol
 1e-4 (per-tile against per-block partial sums; warp scans against cumsum).
 Sums are taken in other orders than the plain versions'; expert routing is
 exact.
@@ -174,19 +174,46 @@ def _close_scaled(got, want, rtol=1e-4, atol_frac=1e-5):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
-def test_sorted_accum_kernel_matches_plain():
+@pytest.mark.parametrize("C", [80, 32, 10, 2])
+def test_sorted_accum_kernel_matches_plain(C):
+    """K5 with the sort's permutation into a non-zero output of two parts:
+    one run of 25,000 rows crossing many 128-row tiles, short runs around
+    it, a ragged last tile; 16-byte copies for C = 80, 32 and 4-byte ones
+    for C = 10, 2; two calls bitwise equal. The rows are drawn in [0, 1):
+    a 25,000-row sum of signed rows cancels, and then the rounding of the
+    two summation orders, not the kernel, would set the tolerance."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    keys, _ = torch.sort(torch.randint(0, 500, (20000,), generator=gen, device="cuda",
-                                       dtype=torch.int32), stable=True)
-    rows = torch.randn((20000, 24), generator=gen, device="cuda")
-    base = torch.randn((600, 24), generator=gen, device="cuda")
-    got, want = base.clone(), base.clone()
+    n, T = 60000, 700
+    keys = torch.randint(0, 2 * T, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    keys[1000:26000] = 333  # a run of > 20,000 rows
+    keys, order = torch.sort(keys, stable=True)
+    rows = torch.rand((n, C), generator=gen, device="cuda")
+    base = torch.randn((2 * T, C), generator=gen, device="cuda")
+    got, want, again = base.clone(), base.clone(), base.clone()
     kernels.reset_launches()
-    HE.sorted_accum(keys, rows, got)
+    HE.sorted_accum(keys, rows, list(got.split(T)), order)
     assert kernels.LAUNCHES["sorted_accum"] == 1
-    HE.sorted_accum_plain(keys, rows, want)
+    HE.sorted_accum_plain(keys, rows, list(want.split(T)), order)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    HE.sorted_accum(keys, rows, list(again.split(T)), order)
+    assert torch.equal(got, again)
+    # rows already in sorted order, one output part
+    flat, flat_want = base.clone(), base.clone()
+    srows = rows[order]
+    HE.sorted_accum(keys, srows, flat)
+    HE.sorted_accum_plain(keys, srows, flat_want)
+    torch.testing.assert_close(flat, flat_want, rtol=1e-5, atol=1e-5)
+
+
+def test_sorted_accum_kernel_takes_no_rows():
+    _need_cuda()
+    out = torch.ones((10, 8), device="cuda")
+    HE.sorted_accum(torch.empty((0,), dtype=torch.int32, device="cuda"),
+                    torch.empty((0, 8), device="cuda"), out,
+                    torch.empty((0,), dtype=torch.int64, device="cuda"))
+    torch.cuda.synchronize()
+    assert bool((out == 1.0).all())
 
 
 @pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
@@ -209,12 +236,19 @@ def test_hash_encode_bwd_kernel_matches_plain(storage, with_experts):
     pkeys, prows = HE.hash_encode_bwd_plain(pos, cfg, eids, grad)
     torch.testing.assert_close(keys, pkeys, rtol=0, atol=0)
     torch.testing.assert_close(rows, prows, rtol=1e-6, atol=1e-7)
-    num_rows = (cfg.num_levels if storage == "shared" else num_experts * cfg.num_levels) \
-        * cfg.table_size
-    got = HE.table_grad(pos, cfg, eids, grad, num_rows)
+    # table_grad adds into the gradient it is given (the level tables' for
+    # 'shared' storage), here on top of a non-zero prior gradient.
+    num_rows = (1 if storage == "shared" else num_experts) * cfg.num_levels * cfg.table_size
+    prior = torch.from_numpy(rng.randn(num_rows, rows.shape[1]).astype(np.float32))
+
+    def parts(flat):
+        return list(flat.split(cfg.table_size)) if storage == "shared" else flat
+
+    got = prior.cuda()
+    HE.table_grad(pos, cfg, eids, grad, parts(got))
     assert kernels.LAUNCHES["sorted_accum"] == 1
-    want = HE.table_grad(pos.cpu(), cfg, None if eids is None else eids.cpu(), grad.cpu(),
-                         num_rows)
+    want = prior.clone()
+    HE.table_grad(pos.cpu(), cfg, None if eids is None else eids.cpu(), grad.cpu(), parts(want))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -343,25 +377,34 @@ def test_mlp_kernels_at_each_automatic_rows_per_cta(rows):
     _check_bwd(layers, h, be, False, g)
 
 
-@pytest.mark.parametrize("payload_layout", ["padded", "none"])
-def test_volume_render_bwd_kernel_matches_plain(payload_layout):
-    """Every upstream gradient non-zero; saturated and empty rays present."""
+K3B_CASES = ([(S, C, layout) for S in (32, 40, 48, 72) for C in (3, 67)
+              for layout in ("padded", "in order")] + [(S, 0, "none") for S in (32, 40, 48, 72)])
+
+
+@pytest.mark.parametrize("S,C,payload_layout", K3B_CASES)
+def test_volume_render_bwd_kernel_matches_plain(S, C, payload_layout):
+    """Every upstream gradient non-zero; saturated and empty rays present;
+    sample counts that fill one, one and a part, and more than two warp
+    chunks; payload rows through a padded index (rows no sample reads get
+    zeros), in sample order, or no payload; and the weights-only launch."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    R, S, C = 300, 48, 67
+    R = 300
     deltas = torch.rand((R, S), generator=gen, device="cuda") * 0.05
     dens = torch.exp(torch.randn((R, S), generator=gen, device="cuda") * 2.0) * 4.0
     dens[0, 3] = 1e30
     dens[1] = 0.0
     steps = torch.cumsum(deltas, -1) + 0.005
     args = [torch.randn(shape, generator=gen, device="cuda") for shape in ((R, S), (R,), (R,))]
-    if payload_layout == "padded":
-        payload = torch.rand((R * S + 512, C), generator=gen, device="cuda")
-        index = torch.randperm(R * S + 512, generator=gen, device="cuda")[:R * S].to(torch.int32)
+    payload = index = gcomp = None
+    if payload_layout != "none":
+        rows = R * S + (512 if payload_layout == "padded" else 0)
+        payload = torch.rand((rows, C), generator=gen, device="cuda")
         gcomp = torch.randn((R, C), generator=gen, device="cuda")
-    else:
-        payload = index = gcomp = None
+        if payload_layout == "padded":
+            index = torch.randperm(rows, generator=gen, device="cuda")[:R * S].to(torch.int32)
     w = VR.volume_render(deltas, dens, steps)["weights"]
+    assert float(VR.volume_render(deltas, dens, steps)["accumulation"][1]) == 0.0
     kernels.reset_launches()
     got = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp)
     assert kernels.LAUNCHES["volume_render_bwd"] == 1
@@ -369,6 +412,9 @@ def test_volume_render_bwd_kernel_matches_plain(payload_layout):
     _close_scaled(got[0], want[0])
     if payload is not None:
         _close_scaled(got[1], want[1])
+    again = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp,
+                                 VR.step_bounds(steps))
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
     # weights only (the proposal rounds)
     d_only = VR.volume_render_bwd(deltas, dens, None, None, None, w, args[0], None, None, None)
     d_plain = VR.volume_render_bwd_plain(deltas, dens, None, None, None, w, args[0], None, None,

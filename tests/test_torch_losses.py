@@ -171,6 +171,27 @@ def test_segment_sum_plain_matches_jax():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("parts", [1, 3])
+def test_segment_sum_plain_through_order_matches_jax(parts):
+    """K5's plain version with the permutation of a stable sort (sorted row
+    i is rows[order[i]]) into a non-zero output of one or three parts (part
+    p holds keys [p T, (p + 1) T)) against jax.ops.segment_sum over the
+    sorted rows plus the prior value."""
+    rng = np.random.RandomState(5)
+    T, n = 100, 1500
+    unsorted = rng.randint(0, parts * T, n).astype(np.int32)
+    rows = rng.randn(n, 4).astype(np.float32)
+    base = rng.randn(parts * T, 4).astype(np.float32)
+    keys, order = torch.sort(torch.from_numpy(unsorted), stable=True)
+    ref = base + np.asarray(jax.jit(lambda r, k: jax.ops.segment_sum(
+        r, k, num_segments=parts * T, indices_are_sorted=True))(
+            jnp.asarray(rows[order.numpy()]), jnp.asarray(keys.numpy())))
+    out = torch.from_numpy(base.copy())
+    THE.sorted_accum(keys, torch.from_numpy(rows), list(out.split(T)) if parts > 1 else out,
+                     order)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
 def test_schedules_match_jax():
     cfg = dict(proposal_warmup=50, proposal_update_every=5, line_of_sight_start_step=10,
                line_of_sight_end_step=200, line_of_sight_decay_steps=60,
