@@ -10,16 +10,8 @@ each run's whole output to chiprun_out/ab/<n>_<tree>.log, and prints, per
 run, its exit code and the lines that carry the numbers compared: the card
 and its power limit, kernel times and bounds, K5 on training keys, the
 profiled step and render (device busy, per-kernel device time), peak
-memory, the steady step and the kernels JSON line. Then, in the same order,
-it times K5 and K3b of each tree by device time (torch.profiler) on the
-same inputs: K5 on the training microbatch this tree's chip_smoke.py
-recorded (outputs/chip_smoke/k5_training_pairs.pt), as sorted rows into
-one output and as the table-gradient work each tree does per microbatch
-after the sort (base: gather the rows, zero a dense gradient, K5, add it
-into the level tables' .grad; this tree: K5 through the permutation into
-.grad), and K3b at a training microbatch's shapes (1024 rays x 48 samples,
-67-wide payload in 57,344 padded slots; and weights only, 32 samples).
-Exits nonzero if any run failed.
+memory, the steady step and the kernels JSON line. Exits nonzero if any
+run failed.
 """
 
 from __future__ import annotations
@@ -34,66 +26,6 @@ HERE = Path(__file__).resolve().parent
 KEEP = re.compile(r"^NVIDIA|^\s+time \w+:|sorted_accum on training keys|^\s+profiled (step|render):"
                   r"|peak device memory|steady step|render again|two calls bitwise equal|FAIL"
                   r"|^\{\"kernels\"")
-
-
-# Run in each tree's root (so it imports that tree's package): one JSON line.
-KERNEL_AB = r"""
-import inspect, json, sys
-import torch
-from torch.profiler import ProfilerActivity, profile
-from presight_tpu_torch.fields.router import build_padded_routing
-from presight_tpu_torch.ops import hash_encoding as HE
-from presight_tpu_torch.ops import renderers as VR
-
-def device_ms(fn, reps=20):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type.name == "CUDA") / reps / 1e3
-
-pairs = torch.load(sys.argv[1])
-keys, order, rows = (pairs[k].cuda() for k in ("keys", "order", "rows"))
-T, L, C = pairs["part_rows"], pairs["parts"], rows.shape[1]
-srows = rows.index_select(0, order)
-flat = torch.zeros((L * T, C), device="cuda")
-grads = [torch.zeros((T, C), device="cuda") for _ in range(L)]
-res = {"k5_sorted_rows_ms": device_ms(lambda: HE.sorted_accum(keys, srows, flat)),
-       "index_add_ms": device_ms(lambda: flat.index_add_(0, keys.long(), srows))}
-if "order" in inspect.signature(HE.sorted_accum).parameters:
-    res["table_grad_work_ms"] = device_ms(lambda: HE.sorted_accum(keys, rows, grads, order))
-else:
-    def work():
-        dense = torch.zeros((L * T, C), device="cuda")
-        HE.sorted_accum(keys, rows.index_select(0, order), dense)
-        for g, d in zip(grads, dense.split(T)):
-            g.add_(d)
-    res["table_grad_work_ms"] = device_ms(work)
-gen = torch.Generator(device="cuda").manual_seed(0)
-R, S, Sp, E = 1024, 48, 32, 16
-routing = build_padded_routing(torch.randint(0, E, (R * S,), generator=gen, device="cuda",
-                                             dtype=torch.int32), E, 512)
-deltas = torch.rand((R, S), generator=gen, device="cuda") * 0.05
-dens = torch.exp(torch.randn((R, S), generator=gen, device="cuda") * 2.0) * 4.0
-steps = torch.cumsum(deltas, -1) + 0.005
-payload = torch.rand((routing.to_slot.shape[0], 67), generator=gen, device="cuda")
-ups = [torch.randn(sh, generator=gen, device="cuda") for sh in ((R, S), (R,), (R,), (R, 67))]
-w = VR.volume_render(deltas, dens, steps, payload, routing.from_slot)["weights"]
-args = (deltas, dens, steps, payload, routing.from_slot, w, *ups)
-if "clip" in inspect.signature(VR.volume_render_bwd).parameters:
-    args = (*args, VR.step_bounds(steps))  # the forward's bounds, as the autograd Function passes
-res["k3b_ms"] = device_ms(lambda: VR.volume_render_bwd(*args))
-d, sg = deltas[:, :Sp].contiguous(), dens[:, :Sp].contiguous()
-wp = VR.volume_render(d, sg)["weights"]
-res["k3b_weights_only_ms"] = device_ms(
-    lambda: VR.volume_render_bwd(d, sg, None, None, None, wp, ups[0][:, :Sp].contiguous(), None,
-                                 None, None))
-print(json.dumps(res))
-"""
 
 
 def main(argv) -> int:
@@ -115,17 +47,8 @@ def main(argv) -> int:
               f"{time.perf_counter() - t0:.1f} s -> {log}")
         for line in proc.stdout.splitlines():
             if KEEP.search(line):
-                print(line if line.startswith('{"kernels"') else line[:240])
+                print(line if line.startswith('{"kernels"') else line[:480])
         failed |= proc.returncode != 0
-    pairs = HERE / "outputs" / "chip_smoke" / "k5_training_pairs.pt"
-    for i, (label, tree) in enumerate((("base", base), ("this", HERE), ("this", HERE),
-                                       ("base", base))):
-        proc = subprocess.run([sys.executable, "-c", KERNEL_AB, str(pairs)], cwd=tree,
-                              capture_output=True, text=True)
-        print(f"== kernels {i} {label}: exit {proc.returncode} {proc.stdout.strip()}")
-        if proc.returncode != 0:
-            print(proc.stderr[-2000:])
-            failed = True
     return 1 if failed else 0
 
 

@@ -9,11 +9,12 @@ Phases (any failure exits nonzero before the result lines are printed):
      source, in parallel) and time the build;
   3. check each forward kernel (K1-K4) against its plain PyTorch version on
      the card at the main path's shapes, with the stated tolerances, and
-     time both by their device time (torch.profiler, 10 calls after
-     warm-up; time_ms); K2
-     also as a chain of one-layer launches, which must equal the fused
-     launch bitwise, and its ReLU masks against the plain forward's (flips
-     only at ties: RELU_TIE_ATOL, RELU_TIE_SHARE);
+     time both with CUDA events (median of 10 calls after warm-up;
+     time_ms), the kernel also by its device time (torch.profiler, the
+     host's share left out; device_ms); K2 also as a chain of one-layer
+     launches, which must equal the fused launch bitwise, and its ReLU
+     masks against the plain forward's (flips only at ties: RELU_TIE_ATOL,
+     RELU_TIE_SHARE);
   4. serve: initialise boston-seaport-camera-dino-c0-tpu at full width from
      a seed, build the cached proposal grid, render one 450x800 camera with
      ImageRenderer (11 chunks of 32768 rays) and extract priors from one
@@ -28,14 +29,16 @@ Phases (any failure exits nonzero before the result lines are printed):
      versions on the card at the training path's shapes (K2b on K2's own
      ReLU masks; two calls of K2b, K3b and K5 bitwise equal), K5 through
      the sort's permutation into a non-zero prior gradient and also against
-     one index_add_ call, and time kernel, plain and library the same way;
+     one index_add_ call, and time kernel, plain and library the same way
+     (K5 on random keys is printed only: its JSON numbers come from phase 7);
   7. train: the Trainer on a synthetic in-memory dataset (six 225x400
      cameras), 5 full-width steps of 65,536 rays in microbatches of 1024;
      print each step's losses, seconds, rays/s and grid refresh, and the
      peak device memory; fail on a non-finite loss or parameter, or if any
      of the eight kernels was not launched on the training path; check and
-     time K5 on the inputs of a training microbatch as phase 6 does, and the
-     chain torch.sort + K5 against index_add_ on the unsorted pairs; then
+     time K5 on the inputs of a training microbatch as phase 6 does (failing
+     if no microbatch's inputs were recorded), and the chain torch.sort + K5
+     against index_add_ on the unsorted pairs; then
      one more step under torch.profiler: the device's busy time and idle
      share, each kernel's device time and launches in the step (step_ms,
      step_launches), the hash backward's and AccumulateGrad's device time,
@@ -45,11 +48,11 @@ Phases (any failure exits nonzero before the result lines are printed):
      the same weights, 2048-ray batch and draws (the plain path on the CPU):
      losses, every gradient leaf and the updated parameters.
 The line before the last is a JSON object with each kernel's launches (on
-the serving and the training path), error, times, bound and device time
-and launches in one training step; the last line
-is {"ok": true, "device": {...}}. Writes the prior pickle, the profile
-tables and K5's recorded training-microbatch inputs (k5_training_pairs.pt,
-which chip_ab.py reads) under outputs/chip_smoke/.
+the serving and the training path), error, times (ms, plain_ms and
+library_ms by CUDA events; device_ms by the profiler), bound, and device
+time and launches in one training step; the last line is {"ok": true,
+"device": {...}}. Writes the prior pickle and the profile tables under
+outputs/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -119,6 +122,24 @@ TRAIN_STEPS = 5
 TRAIN_HW = (225, 400)
 
 
+def time_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of fn() on the current stream, by CUDA events
+    around each call: where the host takes longer to launch a call's
+    kernels than the card to run them, this times the host."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def device_events(fn, reps: int = 10):
     """The device events (kernels, memsets, copies) of ``reps`` calls of
     fn() after two warm-up calls, by torch.profiler."""
@@ -134,13 +155,11 @@ def device_events(fn, reps: int = 10):
     return [e for e in prof.events() if e.device_type.name == "CUDA"]
 
 
-def time_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10) -> float:
     """Device milliseconds per call of fn(): the summed durations of the
     kernels, memsets and copies it runs on the card over ``reps`` calls.
     The host's share of a call (Python, a wrapper's checks and allocations,
-    the launch) is left out: several of the port's kernels take less time
-    than a Python call takes to launch them, so CUDA events around one call
-    would time the host."""
+    the launch), which time_ms counts, is left out."""
     events = device_events(fn, reps)
     return sum(e.time_range.end - e.time_range.start for e in events) / reps / 1e3
 
@@ -174,6 +193,7 @@ class Checker:
     def __init__(self):
         self.errors = {name: 0.0 for name in KERNEL_INFO}
         self.times = {}
+        self.device = {}
         self.library = {}
         self.bounds = {}
         self.failures = []
@@ -192,6 +212,12 @@ class Checker:
         if status != "ok":
             self.failures.append(f"{kernel} {case}: {bad} elements out of tolerance, "
                                  f"finite={finite}")
+
+    def time(self, kernel, run, plain):
+        """The wrapper run() and the plain version plain(), each by time_ms
+        (the kernels JSON line's ms and plain_ms), and run() by device_ms."""
+        self.times[kernel] = (time_ms(run), time_ms(plain))
+        self.device[kernel] = device_ms(run)
 
 
 def median_depth_check(chk, case, got, want, weights, threshold, atol):
@@ -343,8 +369,8 @@ def check_kernels(model, grid, chk: Checker):
     args = (params["field"]["hash_table"], pos, fcfg, routing.expert_of_slot)
     chk.close("hash_encode_fwd", f"main field N={n_pad}", HE.hash_encode(*args),
               HE.hash_encode_plain(*args), 1e-7, 1e-5)
-    chk.times["hash_encode_fwd"] = (time_ms(lambda: HE.hash_encode(*args)),
-                                    time_ms(lambda: HE.hash_encode_plain(*args)))
+    chk.time("hash_encode_fwd", lambda: HE.hash_encode(*args),
+             lambda: HE.hash_encode_plain(*args))
     rows_read = HE.hash_keys(pos, fcfg, routing.expert_of_slot).unique().numel()
     chk.bounds["hash_encode_fwd"] = bound(
         n_pad * 16 + rows_read * fcfg.row_features * 4 + n_pad * fcfg.out_dim * 4,
@@ -402,9 +428,8 @@ def check_kernels(model, grid, chk: Checker):
                   M.apply_mlp_blocks_plain(layers, h, be, sig), 1e-5, 1e-4)
         k2_masks(chk, name, [(w.detach(), b.detach()) for w, b in layers], h, be, sig)
         if name.startswith("base"):
-            chk.times["mlp_blocks_fwd"] = (
-                time_ms(lambda: M.apply_mlp_blocks(layers, h, be, sig)),
-                time_ms(lambda: M.apply_mlp_blocks_plain(layers, h, be, sig)))
+            chk.time("mlp_blocks_fwd", lambda: M.apply_mlp_blocks(layers, h, be, sig),
+                     lambda: M.apply_mlp_blocks_plain(layers, h, be, sig))
             chk.bounds["mlp_blocks_fwd"] = bound(*mlp_work(layers, h.shape[0], 2),
                                                  TC_F32_FLOPS_PER_S)
     prop_mlp = params["props"][0]["mlp"]
@@ -430,8 +455,8 @@ def check_kernels(model, grid, chk: Checker):
               got["expected_depth"], want["expected_depth"], 1e-5, 1e-5)
     median_depth_check(chk, f"depth R={n_rays} S={S}", got["depth"], want["depth"],
                        want["weights"], 0.5, 1e-6)
-    chk.times["volume_render_fwd"] = (time_ms(lambda: VR.volume_render(*vargs)),
-                                      time_ms(lambda: VR.volume_render_plain(*vargs)))
+    chk.time("volume_render_fwd", lambda: VR.volume_render(*vargs),
+             lambda: VR.volume_render_plain(*vargs))
     C = payload.shape[1]
     chk.bounds["volume_render_fwd"] = bound(
         n_rays * S * (4 * 5 + C * 4) + n_rays * (C + 3) * 4, n_rays * S * (12 + 2 * C))
@@ -451,9 +476,8 @@ def check_kernels(model, grid, chk: Checker):
     kargs = (grid, buf["centroids"], buf["aabbs"], gpos, cfg.prop_grid_res)
     chk.close("prop_grid_density_fwd", f"N={n_grid} E={E} G={cfg.prop_grid_res}",
               PF.prop_grid_density(*kargs), PF.prop_grid_density_plain(*kargs), 1e-6, 1e-5)
-    chk.times["prop_grid_density_fwd"] = (
-        time_ms(lambda: PF.prop_grid_density(*kargs)),
-        time_ms(lambda: PF.prop_grid_density_plain(*kargs)))
+    chk.time("prop_grid_density_fwd", lambda: PF.prop_grid_density(*kargs),
+             lambda: PF.prop_grid_density_plain(*kargs))
     G = cfg.prop_grid_res
     eids = assign_experts(gpos, buf["centroids"]).long()
     cell = torch.clamp(torch.floor(contract_positions(gpos, buf["aabbs"][eids])[0] * G), 0, G - 1)
@@ -530,13 +554,11 @@ def check_backward_kernels(model, chk: Checker):
                            f"T={hcfg.num_levels}x{hcfg.table_size}", skeys, order, rows, prior,
                            hcfg.table_size)
         if name.startswith("main"):
-            chk.times["hash_encode_bwd"] = (time_ms(lambda: HE.hash_encode_bwd(pos, hcfg, eids, g)),
-                                            time_ms(lambda: HE.hash_encode_bwd_plain(pos, hcfg,
-                                                                                     eids, g)))
+            chk.time("hash_encode_bwd", lambda: HE.hash_encode_bwd(pos, hcfg, eids, g),
+                     lambda: HE.hash_encode_bwd_plain(pos, hcfg, eids, g))
             chk.bounds["hash_encode_bwd"] = bound(n * 16 + g.numel() * 4 + keys.numel() * 4
                                                   + rows.numel() * 4, rows.numel() * 2)
-            time_sorted_accum(chk, skeys, order, rows, prior, hcfg.table_size,
-                              " on random keys")
+            time_sorted_accum(skeys, order, rows, prior, hcfg.table_size, " on random keys")
 
     # K2b: the six MLP stacks of the training path, against the plain
     # backward on K2's own ReLU masks (a 3xTF32 pre-activation within
@@ -573,9 +595,8 @@ def check_backward_kernels(model, chk: Checker):
             chk.close("mlp_blocks_bwd", f"{name} db[{i}]", db, pb,
                       1e-5 * float(pb.abs().max()), 1e-4)
         if name.startswith("base"):
-            chk.times["mlp_blocks_bwd"] = (time_ms(lambda: M.mlp_blocks_bwd(layers, h, be, sig, g)),
-                                           time_ms(lambda: M.mlp_blocks_bwd_plain(layers, h, be,
-                                                                                  sig, g)))
+            chk.time("mlp_blocks_bwd", lambda: M.mlp_blocks_bwd(layers, h, be, sig, g),
+                     lambda: M.mlp_blocks_bwd_plain(layers, h, be, sig, g))
             chk.bounds["mlp_blocks_bwd"] = bound(*mlp_work(layers, n, 6), TC_F32_FLOPS_PER_S)
 
     # K3b: the final render (48 samples, the 67-wide payload in padded slots)
@@ -609,8 +630,8 @@ def check_backward_kernels(model, chk: Checker):
     print(f"  volume_render_bwd: two calls bitwise equal {same} -> {'ok' if same else 'FAIL'}")
     if not same:
         chk.failures.append("volume_render_bwd: two calls differ")
-    chk.times["volume_render_bwd"] = (time_ms(lambda: VR.volume_render_bwd(*vargs, clip)),
-                                      time_ms(lambda: VR.volume_render_bwd_plain(*vargs)))
+    chk.time("volume_render_bwd", lambda: VR.volume_render_bwd(*vargs, clip),
+             lambda: VR.volume_render_bwd_plain(*vargs))
     # Per sample: delta, sigma, t, w, dL/dw, the payload index and d sigma, and
     # the payload row read; per ray the upstream gradients; every row of
     # d_payload written (the padding slots' zeros too).
@@ -625,7 +646,7 @@ def check_backward_kernels(model, chk: Checker):
     args = (d, sg, None, None, None, w, gw, None, None, None)
     want = VR.volume_render_bwd_plain(*args)[0]
     chk.close("volume_render_bwd", f"d density R={rays} S={Sp} weights only",
-              VR.volume_render_bwd(*args)[0], want, 1e-5 * float(want.abs().max()), 1e-4)
+              VR.volume_render_bwd(*args, None)[0], want, 1e-5 * float(want.abs().max()), 1e-4)
 
 
 def synthetic_dataset(cams, num_features: int):
@@ -667,8 +688,8 @@ def recording_sorted_accum():
     real = HE.sorted_accum
     recorded = {}
 
-    def record(keys, rows, out, order=None):
-        if order is not None and (not recorded or rows.numel() >= recorded["rows"].numel()):
+    def record(keys, rows, out, order):
+        if not recorded or rows.numel() >= recorded["rows"].numel():
             parts = out if isinstance(out, (list, tuple)) else [out]
             recorded.update(keys=keys.clone(), order=order.clone(), rows=rows.clone(),
                             parts=len(parts), part_rows=parts[0].shape[0])
@@ -715,28 +736,33 @@ def check_sorted_accum(chk: Checker, case, keys, order, rows, prior, part_rows):
         chk.failures.append(f"sorted_accum {case}: two calls differ")
 
 
-def time_sorted_accum(chk: Checker, keys, order, rows, prior, part_rows, label=""):
+def time_sorted_accum(keys, order, rows, prior, part_rows, label):
     """K5, its plain version and one index_add_ call on the same inputs, each
-    accumulating into an existing output (no zero fill timed); index_add_
-    reads the rows already sorted. Also the chain torch.sort + K5 against
-    index_add_ on K1b's unsorted pairs. The bound: keys, permutation and
-    rows read once, each distinct key's output row read and written."""
+    accumulating into an existing output (no zero fill timed), by time_ms and
+    K5 and index_add_ also by device_ms; index_add_ reads the rows already
+    sorted. Also the chain torch.sort + K5 against index_add_ on K1b's
+    unsorted pairs. Prints them and returns (ms, plain ms, device ms, library
+    ms, bound). The bound: keys, permutation and rows read once, each
+    distinct key's output row read and written."""
     from presight_tpu_torch.ops import hash_encoding as HE
 
-    out = prior.clone()
-    parts = list(out.split(part_rows))
-    plain_out = prior.clone()
-    plain_parts = list(plain_out.split(part_rows))
+    parts = list(prior.clone().split(part_rows))
+    plain_parts = list(prior.clone().split(part_rows))
     lib_out = prior.clone()
     keys64, srows = keys.long(), rows.index_select(0, order)
-    chk.times["sorted_accum"] = (
-        time_ms(lambda: HE.sorted_accum(keys, rows, parts, order)),
-        time_ms(lambda: HE.sorted_accum_plain(keys, rows, plain_parts, order)))
-    chk.library["sorted_accum"] = time_ms(lambda: lib_out.index_add_(0, keys64, srows))
+
+    def kernel():
+        HE.sorted_accum(keys, rows, parts, order)
+
+    def library():
+        lib_out.index_add_(0, keys64, srows)
+
+    k_ms, p_ms = time_ms(kernel), time_ms(lambda: HE.sorted_accum_plain(keys, rows, plain_parts,
+                                                                        order))
+    lib_ms, k_dev, lib_dev = time_ms(library), device_ms(kernel), device_ms(library)
     runs = torch.unique_consecutive(keys, return_counts=True)[1]
     n, C = rows.shape
-    chk.bounds["sorted_accum"] = bound(n * 4 + n * 8 + n * C * 4 + 2 * runs.numel() * C * 4,
-                                       n * C)
+    b = bound(n * 4 + n * 8 + n * C * 4 + 2 * runs.numel() * C * 4, n * C)
     unsorted = torch.empty_like(keys)
     unsorted[order] = keys
     unsorted64 = unsorted.long()
@@ -747,20 +773,20 @@ def time_sorted_accum(chk: Checker, keys, order, rows, prior, part_rows, label="
 
     reps = 10
     by_kernel = {name: 0.0 for name in KERNEL_GLOBALS["sorted_accum"]}
-    for e in device_events(lambda: HE.sorted_accum(keys, rows, parts, order), reps):
+    for e in device_events(kernel, reps):
         for name in by_kernel:
             if name in e.name:
                 by_kernel[name] += (e.time_range.end - e.time_range.start) / reps / 1e3
     chain_ms = time_ms(chain)
     lib_unsorted_ms = time_ms(lambda: lib_out.index_add_(0, unsorted64, rows))
-    k_ms, p_ms = chk.times["sorted_accum"]
-    b_ms = chk.bounds["sorted_accum"][0]
     print(f"  sorted_accum{label}: {runs.numel()} runs of {n} rows of {C}, longest "
-          f"{int(runs.max())}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ (sorted "
-          f"rows) {chk.library['sorted_accum']:.4f} ms, bound {b_ms:.4f} ms ({b_ms / k_ms:.3f} "
-          f"of it); torch.sort + kernel {chain_ms:.4f} ms vs index_add_ on the unsorted pairs "
-          f"{lib_unsorted_ms:.4f} ms; by kernel: "
+          f"{int(runs.max())}; kernel {k_ms:.4f} ms (device {k_dev:.4f} ms), plain {p_ms:.4f} "
+          f"ms, index_add_ (sorted rows) {lib_ms:.4f} ms (device {lib_dev:.4f} ms), bound "
+          f"{b[0]:.4f} ms ({b[0] / k_ms:.3f} of the kernel's ms, {b[0] / k_dev:.3f} of its "
+          f"device ms); torch.sort + kernel {chain_ms:.4f} ms vs index_add_ on the unsorted "
+          f"pairs {lib_unsorted_ms:.4f} ms; by kernel (device): "
           + ", ".join(f"{name} {ms:.4f} ms" for name, ms in by_kernel.items()))
+    return k_ms, p_ms, k_dev, lib_ms, b
 
 
 def hash_tables(tree):
@@ -828,18 +854,18 @@ def train_phase(aabbs, cent, cams, chk: Checker):
     for name in KERNEL_INFO:
         if launches[name] <= 0:
             problems.append(f"{name} was not launched on the training path")
-    if recorded:
-        keys, order, rows = recorded["keys"], recorded["order"], recorded["rows"]
-        prior = prior_gradient(keys, order, rows, recorded["parts"] * recorded["part_rows"])
-        check_sorted_accum(chk, f"training keys N={keys.numel()} C={rows.shape[1]} "
-                           f"T={recorded['parts']}x{recorded['part_rows']}", keys, order, rows,
-                           prior, recorded["part_rows"])
-        time_sorted_accum(chk, keys, order, rows, prior, recorded["part_rows"],
-                          " on training keys")
-        OUT_DIR.mkdir(parents=True, exist_ok=True)
-        torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in recorded.items()},
-                   OUT_DIR / "k5_training_pairs.pt")
-        problems += chk.failures
+    if not recorded:
+        problems.append("no K5 launch on a training microbatch was recorded")
+        return trainer, launches, {}, problems
+    keys, order, rows = recorded["keys"], recorded["order"], recorded["rows"]
+    prior = prior_gradient(keys, order, rows, recorded["parts"] * recorded["part_rows"])
+    check_sorted_accum(chk, f"training keys N={keys.numel()} C={rows.shape[1]} "
+                       f"T={recorded['parts']}x{recorded['part_rows']}", keys, order, rows,
+                       prior, recorded["part_rows"])
+    k_ms, p_ms, k_dev, chk.library["sorted_accum"], chk.bounds["sorted_accum"] = (
+        time_sorted_accum(keys, order, rows, prior, recorded["part_rows"], " on training keys"))
+    chk.times["sorted_accum"], chk.device["sorted_accum"] = (k_ms, p_ms), k_dev
+    problems += chk.failures
     # The tables' gradients come from K5 adding into .grad: their
     # AccumulateGrad nodes must never run.
     fired = []
@@ -1103,7 +1129,8 @@ def main() -> int:
     check_kernels(model, grid, chk)
     torch.cuda.synchronize()
     for name, (k_ms, p_ms) in chk.times.items():
-        print(f"  time {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        print(f"  time {name}: kernel {k_ms:.4f} ms (device {chk.device[name]:.4f} ms), plain "
+              f"{p_ms:.4f} ms")
     if chk.failures:
         print("phase 3 FAILED:\n  " + "\n  ".join(chk.failures), file=sys.stderr)
         return 1
@@ -1217,13 +1244,12 @@ def main() -> int:
     print("phase 6: backward kernels vs plain PyTorch on the card")
     check_backward_kernels(model, chk)
     torch.cuda.synchronize()
-    for name in KERNEL_INFO:
-        k_ms, p_ms = chk.times[name]
+    for name, (k_ms, p_ms) in chk.times.items():
         lib = chk.library.get(name)
         b_ms, b_by = chk.bounds[name]
-        print(f"  time {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
-              f"({b_by})")
+        print(f"  time {name}: kernel {k_ms:.4f} ms (device {chk.device[name]:.4f} ms), plain "
+              f"{p_ms:.4f} ms, library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{b_ms:.4f} ms ({b_by})")
     if chk.failures:
         print("phase 6 FAILED:\n  " + "\n  ".join(chk.failures), file=sys.stderr)
         return 1
@@ -1249,7 +1275,8 @@ def main() -> int:
          "launches": serve_launches[name] + train_launches[name],
          "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
          "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
-         "plain_ms": chk.times[name][1], "bound_ms": chk.bounds[name][0],
+         "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
+         "bound_ms": chk.bounds[name][0],
          "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name),
          "step_ms": step[name][0], "step_launches": step[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]}))

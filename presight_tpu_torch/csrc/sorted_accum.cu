@@ -11,7 +11,7 @@
 // the tables' gradient once.
 //
 // Contract: sorted row i is rows[order[i]] (order: torch.sort's int64
-// indices; rows[i] without it). The output is P parts of part_rows rows
+// indices). The output is P parts of part_rows rows
 // each (the 'shared' storage's level tables, or one table): key k lives in
 // part k / part_rows at row k % part_rows. It is accumulated into, never
 // zeroed. No float atomics: every output element is written by one thread
@@ -124,7 +124,7 @@ sorted_accum_tiles(const int32_t* __restrict__ keys, const int64_t* __restrict__
     for (int i = tid; i < len + 2; i += kThreads) {
       const int64_t g = lo - 1 + i;
       ks[i] = (g >= 0 && g < n) ? keys[g] : -1;
-      if (i < len) os[i] = order != nullptr ? order[lo + i] : lo + i;
+      if (i < len) os[i] = order[lo + i];
     }
     __syncthreads();
     Vec* rs = rows_s + buf * kRowsPerTile * V;
@@ -321,8 +321,8 @@ int launch(const int32_t* keys, const int64_t* order, const float* rows, int64_t
 
 }  // namespace
 
-// keys (n,) int32 sorted ascending; order (n,) int64 or null; rows (>= n,
-// C); parts: num_parts (<= 16) device pointers of part_rows x C floats each,
+// keys (n,) int32 sorted ascending; order (n,) int64; rows (>= n, C);
+// parts: num_parts (<= 16) device pointers of part_rows x C floats each,
 // accumulated into. vec 4 takes 16-byte copies (C % 4 == 0 and rows and
 // parts 16-byte aligned), vec 1 4-byte ones. scratch: 2 * ceil(n / 64) * C
 // floats; flags: ceil(n / 64) bytes.

@@ -276,14 +276,13 @@ def _out_parts(out: Table) -> List[torch.Tensor]:
 
 
 def sorted_accum_plain(keys: torch.Tensor, rows: torch.Tensor, out: Table,
-                       order: Optional[torch.Tensor] = None) -> None:
+                       order: torch.Tensor) -> None:
     """Plain version of K5 (see sorted_accum for the contract)."""
     if keys.numel() == 0:
         return
     parts = _out_parts(out)
     part_rows = parts[0].shape[0]
-    if order is not None:
-        rows = rows[order]
+    rows = rows[order]
     uniq, counts = torch.unique_consecutive(keys, return_counts=True)
     sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
     uniq = uniq.long()
@@ -295,36 +294,35 @@ def sorted_accum_plain(keys: torch.Tensor, rows: torch.Tensor, out: Table,
 
 
 def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: Table,
-                 order: Optional[torch.Tensor] = None) -> None:
+                 order: torch.Tensor) -> None:
     """Wrapper of K5: for each run of equal ``keys`` (int32, sorted
     ascending), add the sum of its rows to the output row of that key, in
     place. Sorted row i is ``rows[order[i]]`` (``order``: the int64 indices
-    of ``torch.sort``), or ``rows[i]`` without ``order``. ``out`` is one
-    (T, C) tensor, or a list of P (T, C) tensors of which part p holds keys
-    [p T, (p + 1) T) (the 'shared' storage's level tables). The output is
-    accumulated into and never zeroed."""
+    of ``torch.sort``). ``out`` is one (T, C) tensor, or a list of P (T, C)
+    tensors of which part p holds keys [p T, (p + 1) T) (the 'shared'
+    storage's level tables). The output is accumulated into and never
+    zeroed."""
     if rows.device.type == "cpu":
         return sorted_accum_plain(keys, rows, out, order)
     parts = _out_parts(out)
     if keys.dtype != torch.int32 or rows.dtype != torch.float32:
         raise TypeError("sorted_accum: int32 keys and float32 rows expected")
     n = keys.shape[0]
-    if keys.dim() != 1 or rows.dim() != 2 or (order is None and rows.shape[0] != n):
-        raise ValueError("sorted_accum: keys (n,) and rows (n, C) expected")
-    if order is not None and (order.dtype != torch.int64 or order.shape != (n,)):
+    if keys.dim() != 1 or rows.dim() != 2:
+        raise ValueError("sorted_accum: keys (n,) and rows (N, C) expected")
+    if order.dtype != torch.int64 or order.shape != (n,):
         raise ValueError("sorted_accum: order must be int64 (n,)")
     C = rows.shape[1]
     if not 1 <= len(parts) <= 16 or any(
             p.dtype != torch.float32 or p.shape != (parts[0].shape[0], C) for p in parts):
         raise ValueError("sorted_accum: 1 to 16 float32 output parts of one (T, C) shape expected")
-    extra = [] if order is None else [order]
-    kernels.require_cuda("sorted_accum", keys, rows, *parts, *extra)
+    kernels.require_cuda("sorted_accum", keys, order, rows, *parts)
     vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in [rows, *parts]) else 1
     num_tiles = -(-n // _SORTED_ACCUM_TILE)
     scratch = torch.empty((2 * num_tiles, C), dtype=torch.float32, device=rows.device)
     flags = torch.empty((num_tiles,), dtype=torch.uint8, device=rows.device)
     code = kernels.lib().sorted_accum(
-        keys.data_ptr(), kernels.ptr(order), rows.data_ptr(), n, C,
+        keys.data_ptr(), order.data_ptr(), rows.data_ptr(), n, C,
         kernels.host_ptrs([t.data_ptr() for t in parts]), len(parts), parts[0].shape[0], vec,
         scratch.data_ptr(), flags.data_ptr(), kernels.stream())
     kernels.check("sorted_accum", code)

@@ -198,19 +198,17 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
                       payload_index: Optional[torch.Tensor], weights: torch.Tensor,
                       g_weights: torch.Tensor, g_acc: Optional[torch.Tensor],
                       g_expected: Optional[torch.Tensor], g_composite: Optional[torch.Tensor],
-                      clip: Optional[torch.Tensor] = None):
+                      clip: Optional[torch.Tensor]):
     """Wrapper of K3b (see volume_render_bwd_plain for the contract);
-    ``clip``: step_bounds(steps) as the forward used it, computed here when
-    not given. The kernel zeroes the payload rows no sample reads."""
+    ``clip``: step_bounds(steps) as the forward used it (None without
+    steps). The kernel zeroes the payload rows no sample reads."""
     if deltas.device.type == "cpu":
         return volume_render_bwd_plain(deltas, density, steps, payload, payload_index, weights,
                                        g_weights, g_acc, g_expected, g_composite)
     r, s = deltas.shape
     tensors = [deltas, density, weights, g_weights]
     if steps is not None:
-        if clip is None:
-            clip = step_bounds(steps)
-        if clip.shape != (2,):
+        if clip is None or clip.shape != (2,):
             raise ValueError("volume_render_bwd: clip must be {min, max} of the steps")
         tensors += [steps, g_acc, g_expected, clip]
     c = 0

@@ -177,7 +177,7 @@ def _close_scaled(got, want, rtol=1e-4, atol_frac=1e-5):
 @pytest.mark.parametrize("C", [80, 32, 10, 2])
 def test_sorted_accum_kernel_matches_plain(C):
     """K5 with the sort's permutation into a non-zero output of two parts:
-    one run of 25,000 rows crossing many 128-row tiles, short runs around
+    one run of 25,000 rows crossing many 64-row tiles, short runs around
     it, a ragged last tile; 16-byte copies for C = 80, 32 and 4-byte ones
     for C = 10, 2; two calls bitwise equal. The rows are drawn in [0, 1):
     a 25,000-row sum of signed rows cancels, and then the rounding of the
@@ -198,11 +198,11 @@ def test_sorted_accum_kernel_matches_plain(C):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     HE.sorted_accum(keys, rows, list(again.split(T)), order)
     assert torch.equal(got, again)
-    # rows already in sorted order, one output part
+    # rows already in sorted order (the identity permutation), one output part
     flat, flat_want = base.clone(), base.clone()
-    srows = rows[order]
-    HE.sorted_accum(keys, srows, flat)
-    HE.sorted_accum_plain(keys, srows, flat_want)
+    srows, ident = rows[order], torch.arange(n, device="cuda")
+    HE.sorted_accum(keys, srows, flat, ident)
+    HE.sorted_accum_plain(keys, srows, flat_want, ident)
     torch.testing.assert_close(flat, flat_want, rtol=1e-5, atol=1e-5)
 
 
@@ -406,17 +406,18 @@ def test_volume_render_bwd_kernel_matches_plain(S, C, payload_layout):
     w = VR.volume_render(deltas, dens, steps)["weights"]
     assert float(VR.volume_render(deltas, dens, steps)["accumulation"][1]) == 0.0
     kernels.reset_launches()
-    got = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp)
+    clip = VR.step_bounds(steps)
+    got = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp, clip)
     assert kernels.LAUNCHES["volume_render_bwd"] == 1
     want = VR.volume_render_bwd_plain(deltas, dens, steps, payload, index, w, *args, gcomp)
     _close_scaled(got[0], want[0])
     if payload is not None:
         _close_scaled(got[1], want[1])
-    again = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp,
-                                 VR.step_bounds(steps))
+    again = VR.volume_render_bwd(deltas, dens, steps, payload, index, w, *args, gcomp, clip)
     assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
     # weights only (the proposal rounds)
-    d_only = VR.volume_render_bwd(deltas, dens, None, None, None, w, args[0], None, None, None)
+    d_only = VR.volume_render_bwd(deltas, dens, None, None, None, w, args[0], None, None, None,
+                                  None)
     d_plain = VR.volume_render_bwd_plain(deltas, dens, None, None, None, w, args[0], None, None,
                                          None)
     _close_scaled(d_only[0], d_plain[0])

@@ -167,7 +167,7 @@ def test_segment_sum_plain_matches_jax():
     ref = base + np.asarray(jax.jit(lambda r, k: jax.ops.segment_sum(
         r, k, num_segments=400, indices_are_sorted=True))(jnp.asarray(rows), jnp.asarray(keys)))
     out = torch.from_numpy(base.copy())
-    THE.sorted_accum(torch.from_numpy(keys), torch.from_numpy(rows), out)
+    THE.sorted_accum(torch.from_numpy(keys), torch.from_numpy(rows), out, torch.arange(2000))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
