@@ -14,14 +14,19 @@ Phases (any failure exits nonzero before the result lines are printed):
      host's share left out; device_ms); K2 also as a chain of one-layer
      launches, which must equal the fused launch bitwise, and its ReLU
      masks against the plain forward's (flips only at ties: RELU_TIE_ATOL,
-     RELU_TIE_SHARE);
+     RELU_TIE_SHARE); K1 also with 2^14-row tables, every row in L2 (its
+     L2-resident floor);
   4. serve: initialise boston-seaport-camera-dino-c0-tpu at full width from
      a seed, build the cached proposal grid, render one 450x800 camera with
-     ImageRenderer (11 chunks of 32768 rays) and extract priors from one
-     6-camera frame at downscale 5; check finite outputs, the pickle schema,
-     and that K1-K4 were launched on this path; render twice more, the
-     second time under torch.profiler (device busy, K2's share; the table
-     goes to outputs/chip_smoke/render_profile.txt);
+     ImageRenderer (11 chunks of 32768 rays), recording the inputs of K1 on
+     the main field and of K3's final render in its sixth chunk, and
+     extract priors from one 6-camera frame at downscale 5; check finite
+     outputs, the pickle schema, and that K1-K4 were launched on this path;
+     render twice more, the second time under torch.profiler (device busy,
+     each kernel's device time and launches in the render: render_ms,
+     render_launches; the table goes to
+     outputs/chip_smoke/render_profile.txt); check and time K1 and K3 on the
+     recorded chunk as phase 3 does (failing if nothing was recorded);
   5. hold the kernel path against the plain path (the same model on the
      CPU): the full-width cached grid, and a small render with each
      device's own grid (median depths may differ only at threshold ties);
@@ -50,13 +55,15 @@ Phases (any failure exits nonzero before the result lines are printed):
 The line before the last is a JSON object with each kernel's launches (on
 the serving and the training path), error, times (ms, plain_ms and
 library_ms by CUDA events; device_ms by the profiler), bound, and device
-time and launches in one training step; the last line is {"ok": true,
+time and launches in one training step (step_ms, step_launches) and in one
+450x800 render (render_ms, render_launches); the last line is {"ok": true,
 "device": {...}}. Writes the prior pickle and the profile tables under
 outputs/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -140,28 +147,55 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int = 10):
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel: the padding of a profile
+
+
+def device_events(fn, reps: int = 10, pad: int = 4):
     """The device events (kernels, memsets, copies) of ``reps`` calls of
-    fn() after two warm-up calls, by torch.profiler."""
+    fn() after two warm-up calls, by torch.profiler. The profiler has
+    dropped records of a session's last launches (always one of ten
+    index_add_ calls on a training microbatch's rows, in three sessions
+    running), so the calls sit between ``pad`` short spin kernels on each
+    side, which are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type.name == "CUDA"]
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type.name == "CUDA" and SPIN not in e.name]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, kernel: str = "", tries: int = 5) -> float:
     """Device milliseconds per call of fn(): the summed durations of the
-    kernels, memsets and copies it runs on the card over ``reps`` calls.
-    The host's share of a call (Python, a wrapper's checks and allocations,
-    the launch), which time_ms counts, is left out."""
-    events = device_events(fn, reps)
-    return sum(e.time_range.end - e.time_range.start for e in events) / reps / 1e3
+    kernels, memsets and copies it runs on the card over ``reps`` calls,
+    over ``reps``. The host's share of a call (Python, a wrapper's checks and
+    allocations, the launch), which time_ms counts, is left out. Where the
+    profiler still lost events (a K3 call once summed to 0.06 ms, under half
+    its bound) -- some name's events are not a multiple of ``reps``, or the
+    main __global__ of ``kernel`` (a KERNEL_GLOBALS key) has none -- the
+    calls are profiled again, up to ``tries`` runs in all, and then it
+    raises."""
+    must = KERNEL_GLOBALS[kernel][:1] if kernel else ()
+    for _ in range(tries):
+        events = device_events(fn, reps)
+        counts = collections.Counter(e.name for e in events)
+        short = {name[:60]: n for name, n in counts.items() if n % reps}
+        missing = [g for g in must if not any(g in name for name in counts)]
+        if not short and not missing:
+            return sum(e.time_range.end - e.time_range.start for e in events) / reps / 1e3
+        print(f"  (the profiler lost device events of {reps} calls: {short or missing}; "
+              "profiling again)")
+    raise RuntimeError(f"device_ms: the profiler lost device events in {tries} runs")
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -217,7 +251,7 @@ class Checker:
         """The wrapper run() and the plain version plain(), each by time_ms
         (the kernels JSON line's ms and plain_ms), and run() by device_ms."""
         self.times[kernel] = (time_ms(run), time_ms(plain))
-        self.device[kernel] = device_ms(run)
+        self.device[kernel] = device_ms(run, kernel=kernel)
 
 
 def median_depth_check(chk, case, got, want, weights, threshold, atol):
@@ -339,6 +373,105 @@ def scene(num_experts: int):
     return aabbs, cent, cams
 
 
+def k1_bound(pos, hcfg, eids):
+    """K1's bound: positions and expert ids read, each distinct table row
+    these inputs touch read once, the output written."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    n = pos.shape[0]
+    rows_read = HE.hash_keys(pos, hcfg, eids).unique().numel()
+    return bound(n * 16 + rows_read * hcfg.row_features * 4 + n * hcfg.out_dim * 4,
+                 n * hcfg.num_levels * (hcfg.features_per_level * 16 + 30))
+
+
+def k3_bound(deltas, dens, steps, payload, index):
+    """K3's bound: per sample delta, sigma, t, the payload index and the
+    weight written, and its payload row read; per ray its outputs."""
+    R, S = deltas.shape
+    C = payload.shape[1]
+    return bound(R * S * (4 * 5 + C * 4) + R * (C + 3) * 4, R * S * (12 + 2 * C))
+
+
+def check_k3(chk, case, vargs):
+    """K3 with steps and a payload against its plain version: weights,
+    accumulation, composite and expected depth at 1e-5; the median depth off
+    only at threshold ties."""
+    from presight_tpu_torch.ops import renderers as VR
+
+    got, want = VR.volume_render(*vargs), VR.volume_render_plain(*vargs)
+    for key in ("weights", "accumulation", "composite", "expected_depth"):
+        chk.close("volume_render_fwd", f"{key} {case}", got[key], want[key], 1e-5, 1e-5)
+    median_depth_check(chk, f"depth {case}", got["depth"], want["depth"], want["weights"], 0.5,
+                       1e-6)
+
+
+@contextlib.contextmanager
+def recording_render_chunk(field_hash, chunk: int = 5):
+    """Keep a copy of the inputs of K1 on the main field and of K3 with a
+    payload (the final render) in the ``chunk``-th render chunk: the
+    positions of a render chunk lie along rays and the payload rows in the
+    padded slots of real routing, unlike phase 3's uniform draws."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import renderers as VR
+
+    real_k1, real_k3 = HE.hash_encode_fwd, VR.volume_render_fwd
+    recorded, seen = {}, {"k1": 0, "k3": 0}
+
+    def k1(table, positions, config, expert_ids=None, **kw):
+        if config == field_hash:
+            if seen["k1"] == chunk:
+                recorded["k1"] = (table, positions.clone(), config,
+                                  None if expert_ids is None else expert_ids.clone())
+            seen["k1"] += 1
+        return real_k1(table, positions, config, expert_ids, **kw)
+
+    def k3(deltas, density, steps=None, payload=None, payload_index=None, *a, **kw):
+        if payload is not None:
+            if seen["k3"] == chunk:
+                recorded["k3"] = tuple(t.clone() for t in (deltas, density, steps, payload,
+                                                            payload_index))
+            seen["k3"] += 1
+        return real_k3(deltas, density, steps, payload, payload_index, *a, **kw)
+
+    HE.hash_encode_fwd, VR.volume_render_fwd = k1, k3
+    try:
+        yield recorded
+    finally:
+        HE.hash_encode_fwd, VR.volume_render_fwd = real_k1, real_k3
+
+
+@torch.no_grad()
+def check_render_chunk(recorded, chk: Checker):
+    """K1 and K3 on the recorded render chunk against their plain versions,
+    timed by CUDA events and by device time, beside their bounds over this
+    chunk's inputs (K1's over the distinct rows it reads). Returns
+    problems."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import renderers as VR
+
+    if "k1" not in recorded or "k3" not in recorded:
+        return [f"render chunk not recorded (got {sorted(recorded)})"]
+    failures = len(chk.failures)
+    args = recorded["k1"]
+    n = args[1].shape[0]
+    chk.close("hash_encode_fwd", f"render chunk N={n}", HE.hash_encode(*args),
+              HE.hash_encode_plain(*args), 1e-7, 1e-5)
+    b = k1_bound(*args[1:])
+    print(f"  render chunk hash_encode_fwd N={n}: kernel "
+          f"{time_ms(lambda: HE.hash_encode(*args)):.4f} ms (device "
+          f"{device_ms(lambda: HE.hash_encode(*args), kernel='hash_encode_fwd'):.4f} ms), bound "
+          f"{b[0]:.4f} ms ({b[1]})")
+    vargs = recorded["k3"]
+    R, S = vargs[0].shape
+    check_k3(chk, f"render chunk R={R} S={S}", vargs)
+    b = k3_bound(*vargs)
+    print(f"  render chunk volume_render_fwd R={R} S={S} C={vargs[3].shape[1]}: kernel "
+          f"{time_ms(lambda: VR.volume_render(*vargs)):.4f} ms (device "
+          f"{device_ms(lambda: VR.volume_render(*vargs), kernel='volume_render_fwd'):.4f} ms), "
+          f"bound {b[0]:.4f} ms ({b[1]})")
+    return chk.failures[failures:]
+
+
 @torch.no_grad()
 def check_kernels(model, grid, chk: Checker):
     from presight_tpu_torch.configs import tile_model_config
@@ -371,10 +504,20 @@ def check_kernels(model, grid, chk: Checker):
               HE.hash_encode_plain(*args), 1e-7, 1e-5)
     chk.time("hash_encode_fwd", lambda: HE.hash_encode(*args),
              lambda: HE.hash_encode_plain(*args))
-    rows_read = HE.hash_keys(pos, fcfg, routing.expert_of_slot).unique().numel()
-    chk.bounds["hash_encode_fwd"] = bound(
-        n_pad * 16 + rows_read * fcfg.row_features * 4 + n_pad * fcfg.out_dim * 4,
-        n_pad * fcfg.num_levels * (fcfg.features_per_level * 16 + 30))
+    chk.bounds["hash_encode_fwd"] = k1_bound(*args[1:])
+    # The same gather with every row in L2: 2^14-row tables (5 MB a level).
+    small = dataclasses.replace(fcfg, log2_hashmap_size=14)
+    l2gen = torch.Generator(device=dev).manual_seed(SEED + 3)  # phase 3's other draws stay
+    l2args = ([torch.rand((small.table_size, small.row_features), generator=l2gen, device=dev)
+               for _ in range(small.num_levels)], pos, small, routing.expert_of_slot)
+    chk.close("hash_encode_fwd", f"L2-resident 2^14 rows N={n_pad}", HE.hash_encode(*l2args),
+              HE.hash_encode_plain(*l2args), 1e-7, 1e-5)
+    print(f"  hash_encode_fwd L2-resident floor: N={n_pad}, {small.num_levels} x "
+          f"{small.features_per_level}F x 2^14 rows "
+          f"({small.table_size * small.row_features * 4 / 1e6:.1f} MB a level): kernel "
+          f"{time_ms(lambda: HE.hash_encode(*l2args)):.4f} ms (device "
+          f"{device_ms(lambda: HE.hash_encode(*l2args), kernel='hash_encode_fwd'):.4f} ms)")
+    del l2args
     n_prop = n_rays * cfg.num_proposal_samples_per_ray[1]
     pargs = (params["props"][0]["hash_table"], torch.rand((n_prop, 3), generator=gen, device=dev),
              cfg.prop(1).hash, torch.randint(0, E, (n_prop,), generator=gen, device=dev,
@@ -447,19 +590,10 @@ def check_kernels(model, grid, chk: Checker):
     steps = torch.cumsum(deltas, -1) + 0.005
     payload = torch.rand((n_pad, 3 + cfg.semantic_dim), generator=gen, device=dev)
     vargs = (deltas, dens, steps, payload, routing.from_slot)
-    got, want = VR.volume_render(*vargs), VR.volume_render_plain(*vargs)
-    for key in ("weights", "accumulation", "composite"):
-        chk.close("volume_render_fwd", f"{key} R={n_rays} S={S}", got[key], want[key],
-                  1e-5, 1e-5)
-    chk.close("volume_render_fwd", f"expected_depth R={n_rays} S={S}",
-              got["expected_depth"], want["expected_depth"], 1e-5, 1e-5)
-    median_depth_check(chk, f"depth R={n_rays} S={S}", got["depth"], want["depth"],
-                       want["weights"], 0.5, 1e-6)
+    check_k3(chk, f"R={n_rays} S={S}", vargs)
     chk.time("volume_render_fwd", lambda: VR.volume_render(*vargs),
              lambda: VR.volume_render_plain(*vargs))
-    C = payload.shape[1]
-    chk.bounds["volume_render_fwd"] = bound(
-        n_rays * S * (4 * 5 + C * 4) + n_rays * (C + 3) * 4, n_rays * S * (12 + 2 * C))
+    chk.bounds["volume_render_fwd"] = k3_bound(*vargs)
     for S in cfg.num_proposal_samples_per_ray:
         d = torch.rand((n_rays, S), generator=gen, device=dev) * 0.05
         s = torch.exp(torch.randn((n_rays, S), generator=gen, device=dev) * 2.0) * 4.0
@@ -759,7 +893,8 @@ def time_sorted_accum(keys, order, rows, prior, part_rows, label):
 
     k_ms, p_ms = time_ms(kernel), time_ms(lambda: HE.sorted_accum_plain(keys, rows, plain_parts,
                                                                         order))
-    lib_ms, k_dev, lib_dev = time_ms(library), device_ms(kernel), device_ms(library)
+    lib_ms, lib_dev = time_ms(library), device_ms(library)
+    k_dev = device_ms(kernel, kernel="sorted_accum")
     runs = torch.unique_consecutive(keys, return_counts=True)[1]
     n, C = rows.shape
     b = bound(n * 4 + n * 8 + n * C * 4 + 2 * runs.numel() * C * 4, n * C)
@@ -1152,7 +1287,8 @@ def main() -> int:
     kernels.reset_launches()
     t0 = time.perf_counter()
     grid = model.make_prop_grid()
-    img = renderer.render(model, render_cams, 0, H, W, prop_grid=grid)
+    with recording_render_chunk(config.field.hash) as chunk_inputs:
+        img = renderer.render(model, render_cams, 0, H, W, prop_grid=grid)
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1202,9 +1338,17 @@ def main() -> int:
     torch.cuda.synchronize()
     t_render2 = time.perf_counter() - t0
     print(f"  render again (grid reused): {t_render2:.3f} s ({n_rays / t_render2:.1f} rays/s)")
-    profile_device("profiled render", lambda: renderer.render(model, render_cams, 0, H, W,
-                                                                prop_grid=grid),
-                   "render_profile.txt")
+    kernels.reset_launches()
+    render_profile = profile_device("profiled render",
+                                    lambda: renderer.render(model, render_cams, 0, H, W,
+                                                            prop_grid=grid),
+                                    "render_profile.txt")
+    render = {name: (render_profile[name][0], kernels.LAUNCHES[name]) for name in KERNEL_INFO}
+    problems = check_render_chunk(chunk_inputs, chk)
+    del chunk_inputs
+    if problems:
+        print("phase 4 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
 
     # Phase 5: kernel path against the plain path (the same weights on the
     # CPU): the full-width cached grid, then a 16 x 32 render of camera 0 at
@@ -1278,7 +1422,8 @@ def main() -> int:
          "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
          "bound_ms": chk.bounds[name][0],
          "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name),
-         "step_ms": step[name][0], "step_launches": step[name][1]}
+         "step_ms": step[name][0], "step_launches": step[name][1],
+         "render_ms": render[name][0], "render_launches": render[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,21 @@ static inline unsigned int ceil_div64(int64_t a, int64_t b) {
   return (unsigned int)((a + b - 1) / b);
 }
 
-// ---- asynchronous copies into shared memory (K2, K2b, K3b, K5) ----
+// Dynamic shared memory a block may use on an H100.
+constexpr int kSmemLimit = 232448;
+
+// Advance a flattened (row, column) index of rows of width w by 32:
+// row += 32 / w (q), col += 32 % w (rem), carrying into the row.
+__device__ __forceinline__ void step32(int& row, int& col, int q, int rem, int w) {
+  row += q;
+  col += rem;
+  if (col >= w) {
+    col -= w;
+    ++row;
+  }
+}
+
+// ---- asynchronous copies into shared memory (K1, K2, K2b, K3, K3b, K5) ----
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
@@ -66,6 +80,51 @@ __device__ __forceinline__ uint32_t raw_hash(uint32_t x, uint32_t y, uint32_t z)
 }
 
 constexpr uint32_t kExpertPrime = 3674653429u;
+
+// The cell of one (sample, level): in-cell offsets (the trilinear weights'
+// inputs) and masked hashes -- row[0] the cell's row ('cell', 'shared';
+// the expert id XOR-mixed in for 'shared'), or row[c] corner c's ('corner').
+struct HashCell {
+  float ox, oy, oz;
+  uint32_t row[8];
+};
+
+// K1 and K1b both find a sample's cell here, so they cannot drift apart.
+// Hazards kept from the reference: `scaled` is an explicitly rounded product
+// (__fmul_rn), so the compiler cannot fuse p*s - floor(p*s) into an FMA and
+// move a sample into another cell; 'corner' uses ceilf(scaled), which
+// differs from floor+1 at integer coordinates; the hash wraps in uint32
+// exactly like the reference's masked int64 arithmetic.
+__device__ __forceinline__ HashCell hash_cell(const float* __restrict__ p, float scale,
+                                              int storage, bool mix_expert, int32_t e,
+                                              uint32_t mask) {
+  HashCell cell;
+  const float x = __fmul_rn(p[0], scale);
+  const float y = __fmul_rn(p[1], scale);
+  const float z = __fmul_rn(p[2], scale);
+  const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+  cell.ox = __fsub_rn(x, fx);
+  cell.oy = __fsub_rn(y, fy);
+  cell.oz = __fsub_rn(z, fz);
+  const uint32_t ix = (uint32_t)(int32_t)fx;
+  const uint32_t iy = (uint32_t)(int32_t)fy;
+  const uint32_t iz = (uint32_t)(int32_t)fz;
+  if (storage == 0) {
+    const uint32_t cx = (uint32_t)(int32_t)ceilf(x);
+    const uint32_t cy = (uint32_t)(int32_t)ceilf(y);
+    const uint32_t cz = (uint32_t)(int32_t)ceilf(z);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      cell.row[c] = raw_hash(corner_bit_x(c) ? cx : ix, corner_bit_y(c) ? cy : iy,
+                             corner_bit_z(c) ? cz : iz) & mask;
+    }
+  } else {
+    uint32_t h = raw_hash(ix, iy, iz);
+    if (storage == 2 && mix_expert) h ^= (uint32_t)e * kExpertPrime;
+    cell.row[0] = h & mask;
+  }
+  return cell;
+}
 
 // ---- grouped MLP (K2, K2b) ----
 

@@ -13,76 +13,133 @@
 //
 // What bounds it on an H100: random row reads. On the main path a chunk
 // reads ~1.58M padded samples x 4 levels x a 320-byte row (~2 GB) from a
-// 168-MB table set, and does ~10 FLOPs per byte read, so it is bound by
-// device memory and L2 traffic, not arithmetic.
+// 168-MB table set, and does ~10 FLOPs per byte read, so it is bound by the
+// L2's bandwidth to the SMs and by the rows that miss the L2, not by
+// arithmetic.
 //
-// Design: one thread per (sample, level, feature). The F threads of one
-// (sample, level) are adjacent in the warp, so for each corner they read F
-// consecutive floats of the same row together: a row costs its own 32-byte
-// sectors once and nothing more. Output writes are fully coalesced (the
-// output index is the thread index). Hash arithmetic is recomputed per
-// feature; it is a handful of integer ops against a ~300 ns row fetch.
-// Hazards kept from the reference: `scaled` is an explicitly rounded
-// product (__fmul_rn), so the compiler cannot fuse p*s - floor(p*s) into an
-// FMA and move a sample into another cell; 'corner' uses ceilf(scaled),
-// which differs from floor+1 at integer coordinates; the hash wraps in
-// uint32 exactly like the reference's masked int64 arithmetic.
+// Design (v2): a warp takes 32 (sample, level) pairs, one per lane. Each
+// lane finds its pair's cell with hash_cell (common.cuh, shared with K1b:
+// one hash per cell row, not per feature) and keeps the 8 trilinear
+// weights in shared memory. Pairs of the warp that read the same row (the
+// samples of a ray often share a coarse cell) share one copy
+// (__match_any_sync). The warp then starts cp.async copies of its distinct
+// rows into shared memory, all in flight at once: 16-byte copies where the
+// rows are 16-byte aligned, as every 'cell'/'shared' row of 8F floats is,
+// 4-byte copies otherwise; 10 KB a warp on the main field. The lanes then
+// blend from shared memory over the flattened (pair, feature) index and
+// write the output coalesced. The pairs are numbered sample-major (q = s *
+// L + l), so a warp writes 32F consecutive floats. A level-major order (the
+// blocks of one level together, so the L2 holds one level's table at a
+// time, but each (sample, level) an F-float piece at a stride of L * F
+// floats) was slower on every input measured (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-__global__ void hash_encode_fwd_kernel(const float* __restrict__ pos,
-                                       const int32_t* __restrict__ expert,
-                                       LevelTables t, int64_t n, int L, int F,
-                                       uint32_t mask, int storage,
-                                       int64_t expert_stride_rows,
-                                       float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L * F) return;
-  const int f = (int)(i % F);
-  const int64_t nl = i / F;
-  const int l = (int)(nl % L);
-  const int64_t s = nl / L;
+constexpr int kPairs = 32;    // (sample, level) pairs of a warp, one per lane
+constexpr int kMaxWarps = 4;  // warps per CUDA block
 
-  const float scale = t.scale[l];
-  const float x = __fmul_rn(pos[s * 3 + 0], scale);
-  const float y = __fmul_rn(pos[s * 3 + 1], scale);
-  const float z = __fmul_rn(pos[s * 3 + 2], scale);
-  const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-  const float ox = __fsub_rn(x, fx), oy = __fsub_rn(y, fy), oz = __fsub_rn(z, fz);
-  const uint32_t ix = (uint32_t)(int32_t)fx;
-  const uint32_t iy = (uint32_t)(int32_t)fy;
-  const uint32_t iz = (uint32_t)(int32_t)fz;
-  const int32_t e = expert != nullptr ? expert[s] : 0;
-  const float* __restrict__ table = t.table[l];
+// Shared memory of one warp in bytes: the staged rows (8F floats a row,
+// corner-major like a 'cell' row), the 8 weights of each pair, the source of
+// each row segment (8 corner rows for 'corner', one cell row otherwise), and
+// each pair's staged row. Every part is a multiple of 16 bytes.
+__host__ __device__ inline size_t warp_smem_bytes(int F, int segs) {
+  return (size_t)kPairs * (8 * F + 8) * sizeof(float) + (size_t)kPairs * segs * sizeof(void*) +
+         (size_t)kPairs * sizeof(int);
+}
 
-  float acc = 0.0f;
-  if (storage == 0) {
-    const uint32_t cx = (uint32_t)(int32_t)ceilf(x);
-    const uint32_t cy = (uint32_t)(int32_t)ceilf(y);
-    const uint32_t cz = (uint32_t)(int32_t)ceilf(z);
-    const int64_t base = (int64_t)e * expert_stride_rows;
+__global__ void __launch_bounds__(kMaxWarps * 32)
+hash_encode_fwd_kernel(const float* __restrict__ pos, const int32_t* __restrict__ expert,
+                       LevelTables t, int64_t n, int L, int F, uint32_t mask, int storage,
+                       int64_t expert_stride_rows, int vec, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int segs = storage == 0 ? 8 : 1;
+  char* base = reinterpret_cast<char*>(smem4) + warp * warp_smem_bytes(F, segs);
+  float* rows_s = reinterpret_cast<float*>(base);
+  float* w_s = rows_s + kPairs * 8 * F;
+  const float** src_s = reinterpret_cast<const float**>(w_s + kPairs * 8);
+  int* slot_s = reinterpret_cast<int*>(src_s + kPairs * segs);
+
+  const int64_t total = n * L;
+  const int64_t q0 = ((int64_t)blockIdx.x * (blockDim.x / 32) + warp) * kPairs;
+  if (q0 >= total) return;  // whole warps exit together; only __syncwarp below
+  const int pairs = (int)min((int64_t)kPairs, total - q0);
+
+  // 1. One cell, hash and set of weights per pair.
+  const bool valid = lane < pairs;
+  const float* src = nullptr;
+  if (valid) {
+    const int64_t q = q0 + lane;
+    const int64_t s = q / L;
+    const int l = (int)(q - s * L);
+    const int32_t e = expert != nullptr ? expert[s] : 0;
+    const HashCell cell = hash_cell(pos + s * 3, t.scale[l], storage, expert != nullptr, e, mask);
+    float w[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const uint32_t h = raw_hash(corner_bit_x(c) ? cx : ix, corner_bit_y(c) ? cy : iy,
-                                  corner_bit_z(c) ? cz : iz) & mask;
-      acc += __ldg(table + (base + h) * F + f) * corner_weight(c, ox, oy, oz);
-    }
-  } else {
-    uint32_t h = raw_hash(ix, iy, iz);
-    int64_t base = 0;
-    if (storage == 2) {
-      if (expert != nullptr) h ^= (uint32_t)e * kExpertPrime;
+    for (int c = 0; c < 8; ++c) w[c] = corner_weight(c, cell.ox, cell.oy, cell.oz);
+    reinterpret_cast<float4*>(w_s)[lane * 2] = make_float4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<float4*>(w_s)[lane * 2 + 1] = make_float4(w[4], w[5], w[6], w[7]);
+    const float* table = t.table[l];
+    if (storage == 0) {
+      const int64_t eb = (int64_t)e * expert_stride_rows;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) src_s[lane * 8 + c] = table + (eb + cell.row[c]) * F;
     } else {
-      base = (int64_t)e * expert_stride_rows;
-    }
-    const float* __restrict__ row = table + (base + (h & mask)) * (8 * F);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      acc += __ldg(row + c * F + f) * corner_weight(c, ox, oy, oz);
+      const int64_t eb = storage == 1 ? (int64_t)e * expert_stride_rows : 0;
+      src = table + (eb + cell.row[0]) * (8 * F);
     }
   }
-  out[i] = acc;
+  // Pairs that share a cell row share one staged copy.
+  int rows = pairs;
+  if (storage == 0) {
+    slot_s[lane] = lane;
+  } else {
+    const unsigned same =
+        __match_any_sync(kFullMask, (unsigned long long)reinterpret_cast<uintptr_t>(src));
+    const int leader = __ffs(same) - 1;
+    const unsigned leaders = __ballot_sync(kFullMask, valid && leader == lane);
+    const int slot = __popc(leaders & ((1u << leader) - 1u));
+    slot_s[lane] = slot;
+    if (valid && leader == lane) src_s[slot] = src;
+    rows = __popc(leaders);
+  }
+  __syncwarp();
+
+  // 2. The distinct rows into shared memory, every copy in flight at once.
+  const int per_pair = 8 * F / vec;  // copies of one row
+  const int seg_w = 8 * F / segs;    // floats of one row segment
+  {
+    int p = lane / per_pair, k = lane % per_pair;
+    const int q = 32 / per_pair, rem = 32 % per_pair;
+    for (; p < rows; step32(p, k, q, rem, per_pair)) {
+      const int o = k * vec;  // float offset in the row's 8F
+      const float* from = segs == 1 ? src_s[p] + o : src_s[p * 8 + o / seg_w] + o % seg_w;
+      float* dst = rows_s + p * 8 * F + o;
+      if (vec == 4) {
+        cp_async16(dst, from);
+      } else {
+        cp_async4(dst, from);
+      }
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // 3. Blend, lanes over (pair, feature): out = sum_c row[c * F + f] * w_c.
+  int p = lane / F, f = lane % F;
+  const int q = 32 / F, rem = 32 % F;
+  for (; p < pairs; step32(p, f, q, rem, F)) {
+    const float* row = rows_s + slot_s[p] * 8 * F + f;
+    const float4 wa = reinterpret_cast<const float4*>(w_s)[p * 2];
+    const float4 wb = reinterpret_cast<const float4*>(w_s)[p * 2 + 1];
+    const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc += row[c * F] * w[c];
+    out[(q0 + p) * F + f] = acc;
+  }
 }
 
 }  // namespace
@@ -92,19 +149,31 @@ __global__ void hash_encode_fwd_kernel(const float* __restrict__ pos,
 PTK_EXPORT int hash_encode_fwd(const float* pos, const int32_t* expert,
                                const void* const* tables, const float* scales,
                                int64_t n, int L, int F, int log2_table_size,
-                               int storage, int64_t expert_stride_rows,
-                               float* out, void* stream) {
-  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
+                               int storage, int64_t expert_stride_rows, float* out,
+                               void* stream) {
+  if (L < 1 || L > kMaxLevels || F < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   LevelTables t;
+  // 16-byte row copies where every row starts 16-byte aligned: the level
+  // pointers are, and a row is a multiple of 4 floats (8F for 'cell' and
+  // 'shared', F for 'corner'); 4-byte copies otherwise.
+  int vec = storage != 0 || F % 4 == 0 ? 4 : 1;
   for (int l = 0; l < L; ++l) {
     t.table[l] = static_cast<const float*>(tables[l]);
     t.scale[l] = scales[l];
+    if (reinterpret_cast<uintptr_t>(tables[l]) % 16 != 0) vec = 1;
   }
   const uint32_t mask = (uint32_t)((1ull << log2_table_size) - 1ull);
-  const int threads = 256;
-  hash_encode_fwd_kernel<<<ceil_div64(n * L * F, threads), threads, 0,
+  const size_t per_warp = warp_smem_bytes(F, storage == 0 ? 8 : 1);
+  int warps = kMaxWarps;
+  while (warps > 1 && warps * per_warp > (size_t)kSmemLimit) warps /= 2;
+  if (warps * per_warp > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;  // F too large
+  const size_t smem = warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(hash_encode_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  hash_encode_fwd_kernel<<<ceil_div64(n * L, (int64_t)warps * kPairs), warps * 32, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      pos, expert, t, n, L, F, mask, storage, expert_stride_rows, out);
+      pos, expert, t, n, L, F, mask, storage, expert_stride_rows, vec, out);
   return (int)cudaGetLastError();
 }

@@ -16,15 +16,15 @@
 //   storage 2 'shared': as 'cell' with key l * T + (hash ^ expert mix); K5
 //                       adds key l * T + row to row `row` of level l's
 //                       table gradient.
-// The index and the trilinear weights are recomputed bit for bit as K1
-// computes them (__fmul_rn scaling, ceilf for 'corner', uint32 hash).
+// The cell, its index and the trilinear weights come from hash_cell
+// (common.cuh), which K1 uses too, so the keys name the rows K1 read.
 //
 // What bounds it on an H100: device memory. It reads 16 B of position and
 // expert id and F floats of upstream gradient per (sample, level) and
 // writes 8F floats and a key: an 8x expansion of g, written once,
 // coalesced. The arithmetic is a handful of integer and float ops.
 //
-// Design: one thread per (sample, level, feature), like K1: the F threads
+// Design: one thread per (sample, level, feature): the F threads
 // of one (sample, level) sit side by side, so for each corner c they write
 // F consecutive floats of the row; the thread of feature 0 writes the key.
 #include "common.cuh"
@@ -45,46 +45,27 @@ __global__ void hash_encode_bwd_kernel(const float* __restrict__ pos,
   const uint32_t mask = (uint32_t)((1ull << log2T) - 1ull);
   const int64_t T = (int64_t)1 << log2T;
 
-  const float scale = t.scale[l];
-  const float x = __fmul_rn(pos[s * 3 + 0], scale);
-  const float y = __fmul_rn(pos[s * 3 + 1], scale);
-  const float z = __fmul_rn(pos[s * 3 + 2], scale);
-  const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-  const float ox = __fsub_rn(x, fx), oy = __fsub_rn(y, fy), oz = __fsub_rn(z, fz);
-  const uint32_t ix = (uint32_t)(int32_t)fx;
-  const uint32_t iy = (uint32_t)(int32_t)fy;
-  const uint32_t iz = (uint32_t)(int32_t)fz;
   const int32_t e = expert != nullptr ? expert[s] : 0;
+  const HashCell cell = hash_cell(pos + s * 3, t.scale[l], storage, expert != nullptr, e, mask);
   const float g = grad[i];  // grad is (n, L * F): its index is the thread's
 
   if (storage == 0) {
-    const uint32_t cx = (uint32_t)(int32_t)ceilf(x);
-    const uint32_t cy = (uint32_t)(int32_t)ceilf(y);
-    const uint32_t cz = (uint32_t)(int32_t)ceilf(z);
     const int64_t base = ((int64_t)e * L + l) * T;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int64_t r = nl * 8 + c;
-      rows[r * F + f] = __fmul_rn(corner_weight(c, ox, oy, oz), g);
-      if (f == 0) {
-        const uint32_t h = raw_hash(corner_bit_x(c) ? cx : ix, corner_bit_y(c) ? cy : iy,
-                                    corner_bit_z(c) ? cz : iz) & mask;
-        keys[r] = (int32_t)(base + h);
-      }
+      rows[r * F + f] = __fmul_rn(corner_weight(c, cell.ox, cell.oy, cell.oz), g);
+      if (f == 0) keys[r] = (int32_t)(base + cell.row[c]);
     }
   } else {
     float* __restrict__ row = rows + nl * (8 * F);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) row[c * F + f] = __fmul_rn(corner_weight(c, ox, oy, oz), g);
+    for (int c = 0; c < 8; ++c) {
+      row[c * F + f] = __fmul_rn(corner_weight(c, cell.ox, cell.oy, cell.oz), g);
+    }
     if (f == 0) {
-      uint32_t h = raw_hash(ix, iy, iz);
-      int64_t base = (int64_t)l * T;
-      if (storage == 2) {
-        if (expert != nullptr) h ^= (uint32_t)e * kExpertPrime;
-      } else {
-        base += (int64_t)e * L * T;
-      }
-      keys[nl] = (int32_t)(base + (h & mask));
+      const int64_t base = (int64_t)l * T + (storage == 1 ? (int64_t)e * L * T : 0);
+      keys[nl] = (int32_t)(base + cell.row[0]);
     }
   }
 }

@@ -21,7 +21,6 @@
 constexpr int kMaxWidth = 80;          // widest layer the kernels take
 constexpr int kMaxN8 = kMaxWidth / 8;  // n8 tiles of the widest layer
 constexpr int kWarpRows = 16;          // rows of one warp's m16 tile
-constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may use
 constexpr int kSmemPerSm = 233472;     // shared memory of an SM
 constexpr int kSmemReserved = 1024;    // the system's share of it per block
 

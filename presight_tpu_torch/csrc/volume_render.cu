@@ -24,19 +24,33 @@
 // cumsum, an exp, several reductions and a (R*S, C) weighted scatter, each a
 // full pass over memory.
 //
-// Design: one warp per ray. Lanes take consecutive samples (coalesced
-// reads), the exclusive prefix sum and the cumulative weight are warp scans
-// with shuffles, the sums are butterfly reductions, and the median index is
-// a ballot count. The weights and payload row indices of the ray are kept
-// in shared memory for the composite, where lanes take consecutive payload
-// channels so each payload row is read by one coalesced access per sample.
+// Design (v2): one warp per ray, up to four rays per CUDA block. At entry
+// each warp loads the first 32 samples' delta, sigma and t, reads its
+// ray's payload row indices and starts cp.async copies of the S payload
+// rows (48 x 67 floats, 12.9 KB on the main path; 4-byte copies, as a
+// 67-float row is only 4-byte aligned) into shared memory, all in flight
+// at once, as K3b does. The weight pass runs while they fly, each chunk's
+// inputs loaded one chunk ahead: lanes take consecutive samples (coalesced
+// reads), the exclusive prefix sum and the cumulative weight are warp
+// scans with shuffles, the sums are butterfly reductions, and the median
+// index is a ballot count (K3b recomputes T_s and the sums in this order).
+// The composite then runs over the staged rows, lanes over channels (a row
+// stride of C puts the lanes on consecutive floats), each lane summing up
+// to three channels in one pass over the samples, each in sample order.
+// The weights-only launches (proposal rounds) stage nothing. A ray whose
+// S x C rows do not fit in shared memory with its weights and row indices
+// (S * (C + 2) floats above 58,112, kSmemLimit: S > 842 at C = 67) is not
+// staged either: its composite reads the rows from device memory in the
+// same order, so it gives the same sums. S itself is limited to 29,056
+// with a payload and 58,112 without (one ray a block); beyond, the entry
+// returns cudaErrorInvalidValue.
 #include <float.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kMaxRays = 4;  // rays (warps) per CUDA block
 
 __device__ __forceinline__ float nan_to_num(float w) {
   if (isnan(w)) return 0.0f;
@@ -44,21 +58,56 @@ __device__ __forceinline__ float nan_to_num(float w) {
   return w;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Floats of shared memory per ray: w_s, with a payload the row index of
+// each sample, and if staged the S x C payload rows.
+__host__ __device__ inline int64_t ray_smem_floats(int S, int C, bool with_payload,
+                                                   bool staged) {
+  return S + (with_payload ? S : 0) + (staged ? (int64_t)S * C : 0);
+}
+
+__global__ void __launch_bounds__(kMaxRays * 32)
 volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restrict__ density,
                          const float* __restrict__ steps, const float* __restrict__ clip,
                          const float* __restrict__ payload,
                          const int32_t* __restrict__ payload_index, int64_t R, int S,
-                         int C, float threshold, float* __restrict__ weights,
+                         int C, int staged, float threshold, float* __restrict__ weights,
                          float* __restrict__ acc_out, float* __restrict__ depth_out,
                          float* __restrict__ expected_out, float* __restrict__ composite) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (r >= R) return;  // whole warps exit together; only __syncwarp below
-  float* w_s = smem + warp * S;
-  int32_t* row_s = reinterpret_cast<int32_t*>(smem + kWarps * S) + warp * S;
+  const bool with_payload = payload != nullptr;
+  float* w_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload, staged);
+  int32_t* row_s = reinterpret_cast<int32_t*>(w_s + S);
+  float* tile_s = w_s + 2 * S;  // the ray's payload rows, S x C
   const int64_t base = r * S;
+
+  // The first chunk's inputs of the weight pass, loaded before the copies.
+  float d_next = 0.0f, sig_next = 0.0f, t_next = 0.0f;
+  if (lane < S) {
+    d_next = deltas[base + lane];
+    sig_next = density[base + lane];
+    if (steps != nullptr) t_next = steps[base + lane];
+  }
+
+  // Start the copies of the payload rows.
+  if (with_payload) {
+    for (int s = lane; s < S; s += 32) {
+      row_s[s] = payload_index != nullptr ? payload_index[base + s] : (int32_t)(base + s);
+    }
+    __syncwarp();
+  }
+  if (staged) {
+    int s = lane / C, c = lane % C;
+    const int q = 32 / C, rem = 32 % C;
+#pragma unroll 4
+    for (int k = lane; k < S * C; k += 32) {
+      cp_async4(tile_s + k, payload + (int64_t)row_s[s] * C + c);
+      step32(s, c, q, rem, C);
+    }
+    cp_async_commit();
+  }
 
   float carry = 0.0f;   // sum of dd over earlier 32-sample chunks
   float wcarry = 0.0f;  // cumulative weight over earlier chunks
@@ -67,7 +116,13 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
   for (int s0 = 0; s0 < S; s0 += 32) {
     const int s = s0 + lane;
     const bool valid = s < S;
-    const float dd = valid ? __fmul_rn(deltas[base + s], density[base + s]) : 0.0f;
+    const float dd = valid ? __fmul_rn(d_next, sig_next) : 0.0f;
+    const float t_s = t_next;
+    if (s + 32 < S) {
+      d_next = deltas[base + s + 32];
+      sig_next = density[base + s + 32];
+      if (steps != nullptr) t_next = steps[base + s + 32];
+    }
     const float inc = warp_inclusive_scan(dd, lane);
     float excl = __shfl_up_sync(kFullMask, inc, 1);
     if (lane == 0) excl = 0.0f;
@@ -79,14 +134,11 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
     if (valid) {
       weights[base + s] = w;
       w_s[s] = w;
-      if (payload != nullptr) {
-        row_s[s] = payload_index != nullptr ? payload_index[base + s] : (int32_t)(base + s);
-      }
     }
     if (steps != nullptr) {
       below += __popc(__ballot_sync(kFullMask, valid && cum < threshold));
       wsum += w;
-      if (valid) wtsum += w * steps[base + s];
+      if (valid) wtsum += w * t_s;
     }
   }
 
@@ -102,12 +154,24 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
     }
   }
 
-  if (payload != nullptr) {
+  if (with_payload) {
+    cp_async_wait<0>();
     __syncwarp();
-    for (int c = lane; c < C; c += 32) {
-      float acc = 0.0f;
-      for (int s = 0; s < S; ++s) acc += w_s[s] * payload[(int64_t)row_s[s] * C + c];
-      composite[r * C + c] = acc;
+    // Each lane sums up to three channels (c, c + 32, c + 64) in one pass
+    // over the samples, each in sample order.
+    for (int c = lane; c < C; c += 96) {
+      const bool has1 = c + 32 < C, has2 = c + 64 < C;
+      float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
+      for (int s = 0; s < S; ++s) {
+        const float w = w_s[s];
+        const float* row = staged ? tile_s + s * C + c : payload + (int64_t)row_s[s] * C + c;
+        acc0 += w * row[0];
+        if (has1) acc1 += w * row[32];
+        if (has2) acc2 += w * row[64];
+      }
+      composite[r * C + c] = acc0;
+      if (has1) composite[r * C + c + 32] = acc1;
+      if (has2) composite[r * C + c + 64] = acc2;
     }
   }
 }
@@ -123,16 +187,24 @@ PTK_EXPORT int volume_render_fwd(const float* deltas, const float* density, cons
                                  float threshold, float* weights, float* acc_out,
                                  float* depth_out, float* expected_out, float* composite,
                                  void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
+  const bool with_payload = payload != nullptr;
+  if (S < 1 || (with_payload && C < 1)) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)kWarps * S * (sizeof(float) + sizeof(int32_t));
+  // Stage the payload rows where one ray's fit in shared memory.
+  const bool staged = with_payload &&
+                      ray_smem_floats(S, C, true, true) * sizeof(float) <= (size_t)kSmemLimit;
+  int rays = kMaxRays;
+  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload, staged) * sizeof(float);
+  while (rays > 1 && rays * per_ray > (size_t)kSmemLimit) rays /= 2;
+  if (rays * per_ray > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;  // S too large
+  const size_t smem = rays * per_ray;
   cudaError_t err = cudaFuncSetAttribute(volume_render_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  volume_render_fwd_kernel<<<ceil_div64(R, kWarps), kWarps * 32, smem,
+  volume_render_fwd_kernel<<<ceil_div64(R, rays), rays * 32, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      deltas, density, steps, clip, payload, payload_index, R, S, C, threshold, weights,
+      deltas, density, steps, clip, payload, payload_index, R, S, C, staged, threshold, weights,
       acc_out, depth_out, expected_out, composite);
   return (int)cudaGetLastError();
 }

@@ -48,8 +48,7 @@
 
 namespace {
 
-constexpr int kMaxRays = 4;              // rays (warps) per CUDA block
-constexpr int kSmemLimit = 232448;       // dynamic shared memory a block may use
+constexpr int kMaxRays = 4;  // rays (warps) per CUDA block
 
 __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   // d/dx min(max(x, lo), hi) as JAX differentiates it (0.5 at a tie).
@@ -63,16 +62,6 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
 // row index of each sample, dL/dcomposite and the S x C payload rows.
 __host__ __device__ __forceinline__ int ray_smem_floats(int S, int C, bool with_payload) {
   return 3 * S + (with_payload ? S + C + S * C : 0);
-}
-
-// Advance a flattened (sample, channel) index by 32: s += 32 / C, c += 32 % C.
-__device__ __forceinline__ void step32(int& s, int& c, int q, int rem, int C) {
-  s += q;
-  c += rem;
-  if (c >= C) {
-    c -= C;
-    ++s;
-  }
 }
 
 __global__ void __launch_bounds__(kMaxRays * 32)

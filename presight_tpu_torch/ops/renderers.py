@@ -94,7 +94,11 @@ def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
                       threshold: float = 0.5,
                       clip: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Wrapper of K3 (see volume_render_plain for the contract); ``clip``:
-    step_bounds(steps), computed here when not given."""
+    step_bounds(steps), computed here when not given. The kernel stages a
+    ray's payload rows in shared memory where S * (C + 2) floats fit
+    (58,112: S <= 842 at C = 67) and reads them from device memory
+    otherwise; it takes S up to 29,056 with a payload and 58,112 without,
+    and raises beyond."""
     if deltas.device.type == "cpu":
         return volume_render_plain(deltas, density, steps, payload, payload_index,
                                    threshold)

@@ -4,11 +4,13 @@ machine, which has none:
 
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5; K2 atol 1e-5 +
+Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5 (its two orders
+of (sample, level) pairs and two calls bitwise equal); K2 atol 1e-5 +
 rtol 1e-4 (3xTF32 products; its ReLU masks may differ from the plain
 forward's only at ties, and K2b is held against the plain backward on
-K2's own masks); K3 and the rendered image atol 1e-5 + rtol 1e-5; K4 atol 1e-6 +
-rtol 1e-5; K1b keys exact, rows atol 1e-7 + rtol 1e-6; K5 and the table
+K2's own masks); K3 and the rendered image atol 1e-5 + rtol 1e-5 (K3's
+median depth exact but at threshold ties; two K3 calls bitwise equal); K4
+atol 1e-6 + rtol 1e-5; K1b keys exact, rows atol 1e-7 + rtol 1e-6; K5 and the table
 gradient atol 1e-5 + rtol 1e-5 (run sums in one order against
 segment_reduce's; two K5 calls bitwise equal); K2b and K3b atol 1e-5 of the largest gradient + rtol
 1e-4 (per-tile against per-block partial sums; warp scans against cumsum).
@@ -98,22 +100,26 @@ def test_kernels_match_plain_versions(cuda_model):
     assert all(kernels.LAUNCHES[name] > 0 for name in kernels.KERNELS if name.endswith("_fwd"))
 
 
+@pytest.mark.parametrize("levels", [1, 2, 4, 16])
+@pytest.mark.parametrize("features", [1, 4, 10])
 @pytest.mark.parametrize("with_experts", [False, True], ids=["single", "experts"])
 @pytest.mark.parametrize("storage", ["corner", "cell", "shared"])
-def test_hash_encode_kernel_matches_plain(storage, with_experts):
+def test_hash_encode_kernel_matches_plain(storage, with_experts, features, levels):
     """K1 on every table layout, with and without expert ids, at random
-    points and at grid nodes of every level (where ceil == floor)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    cfg = HashEncodingConfig(num_levels=3, min_res=4, max_res=64, log2_hashmap_size=8,
-                             features_per_level=2, storage=storage)
+    points and at grid nodes of every level (where ceil == floor); F = 1 and
+    10 take 4-byte copies for 'corner' rows, F = 4 16-byte ones; a sample
+    count that is not a multiple of a block's pairs, and none; two calls
+    bitwise equal."""
+    _need_cuda()
+    cfg = HashEncodingConfig(num_levels=levels, min_res=4, max_res=64, log2_hashmap_size=8,
+                             features_per_level=features, storage=storage)
     num_experts = 3 if with_experts else 1
     table = HE.init_hash_table(torch.Generator().manual_seed(0), cfg, num_experts)
     # Scale the tables up so the tolerance is not all atol.
     table = ([t.cuda() * 1e4 for t in table] if storage == "shared" else table.cuda() * 1e4)
     rng = np.random.RandomState(1)
     nodes = [rng.randint(0, int(s) + 1, (64, 3)).astype(np.float32) / s for s in cfg.scalings()]
-    pos = torch.from_numpy(np.concatenate([rng.rand(2000, 3).astype(np.float32), *nodes])).cuda()
+    pos = torch.from_numpy(np.concatenate([rng.rand(2001, 3).astype(np.float32), *nodes])).cuda()
     eids = (torch.from_numpy(rng.randint(0, num_experts, len(pos)).astype(np.int32)).cuda()
             if with_experts else None)
     kernels.reset_launches()
@@ -121,6 +127,30 @@ def test_hash_encode_kernel_matches_plain(storage, with_experts):
     assert kernels.LAUNCHES["hash_encode_fwd"] == 1
     torch.testing.assert_close(got, HE.hash_encode_plain(table, pos, cfg, eids),
                                rtol=1e-5, atol=1e-7)
+    assert torch.equal(got, HE.hash_encode(table, pos, cfg, eids))
+    none = HE.hash_encode(table, pos[:0], cfg, None if eids is None else eids[:0])
+    assert none.shape == (0, cfg.out_dim)
+
+
+@pytest.mark.parametrize("storage", ["cell", "shared"])
+def test_hash_encode_kernel_reads_unaligned_tables(storage):
+    """Tables that start 4 bytes past a 16-byte boundary: the kernel takes
+    4-byte row copies and matches the plain version."""
+    _need_cuda()
+    cfg = HashEncodingConfig(num_levels=4, min_res=4, max_res=64, log2_hashmap_size=8,
+                             features_per_level=4, storage=storage)
+    table = HE.init_hash_table(torch.Generator().manual_seed(0), cfg, 2)
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, device="cuda")[1:]
+        return flat.copy_(t.reshape(-1).cuda() * 1e4).view(t.shape)
+
+    table = [unaligned(t) for t in table] if storage == "shared" else unaligned(table)
+    rng = np.random.RandomState(2)
+    pos = torch.from_numpy(rng.rand(1001, 3).astype(np.float32)).cuda()
+    eids = torch.from_numpy(rng.randint(0, 2, len(pos)).astype(np.int32)).cuda()
+    torch.testing.assert_close(HE.hash_encode(table, pos, cfg, eids),
+                               HE.hash_encode_plain(table, pos, cfg, eids), rtol=1e-5, atol=1e-7)
 
 
 def test_expert_routing_near_bisectors_matches_cpu():
@@ -379,6 +409,67 @@ def test_mlp_kernels_at_each_automatic_rows_per_cta(rows):
 
 K3B_CASES = ([(S, C, layout) for S in (32, 40, 48, 72) for C in (3, 67)
               for layout in ("padded", "in order")] + [(S, 0, "none") for S in (32, 40, 48, 72)])
+
+
+K3_CASES = ([(S, C, layout) for S in (1, 31, 32, 33, 48, 64) for C in (3, 64, 67)
+             for layout in ("padded", "in order")] + [(S, 0, "none") for S in (1, 31, 33, 48)]
+            + [(1024, 67, layout) for layout in ("padded", "in order")])
+
+
+@pytest.mark.parametrize("S,C,payload_layout", K3_CASES)
+def test_volume_render_kernel_matches_plain(S, C, payload_layout):
+    """K3 against its plain version: sample counts below, at and above one
+    warp chunk and two; payload rows through a padded index, in sample
+    order, or no payload (the weights-only launch of the proposal rounds);
+    a ray whose S x C payload does not fit in shared memory (S = 1024, C =
+    67: the composite reads the rows from device memory); a ray count that
+    is not a multiple of a block's rays; saturated and
+    empty rays; two calls bitwise equal. The median depth may differ only
+    where the plain cumulative weight lies within 1e-5 of 0.5."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    R = 301
+    deltas = torch.rand((R, S), generator=gen, device="cuda") * 0.05
+    dens = torch.exp(torch.randn((R, S), generator=gen, device="cuda") * 2.0) * 4.0
+    dens[0, S // 2] = 1e30
+    dens[1] = 0.0
+    steps = torch.cumsum(deltas, -1) + 0.005
+    payload = index = None
+    if payload_layout != "none":
+        rows = R * S + (512 if payload_layout == "padded" else 0)
+        payload = torch.rand((rows, C), generator=gen, device="cuda")
+        if payload_layout == "padded":
+            index = torch.randperm(rows, generator=gen, device="cuda")[:R * S].to(torch.int32)
+    kernels.reset_launches()
+    got = VR.volume_render(deltas, dens, steps, payload, index)
+    assert kernels.LAUNCHES["volume_render_fwd"] == 1
+    want = VR.volume_render_plain(deltas, dens, steps, payload, index)
+    keys = ["weights", "accumulation", "expected_depth"] + (["composite"] if C else [])
+    for key in keys:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+    tie = ((torch.cumsum(want["weights"], -1) - 0.5).abs() < 1e-5).any(-1)
+    assert not bool(((got["depth"] - want["depth"]).abs() > 1e-6)[~tie].any())
+    again = VR.volume_render(deltas, dens, steps, payload, index)
+    assert all(torch.equal(got[key], again[key]) for key in got)
+    only = VR.volume_render(deltas, dens)
+    assert set(only) == {"weights"} and torch.equal(only["weights"], got["weights"])
+
+
+@pytest.mark.parametrize("C", [0, 3])
+def test_volume_render_kernel_rejects_rays_past_shared_memory(C):
+    """A ray needs two floats of shared memory a sample with a payload and
+    one without: S one past what one ray a block can hold raises."""
+    _need_cuda()
+    S = 29_057 if C else 58_113
+    deltas = torch.full((2, S), 1e-3, device="cuda")
+    payload = torch.rand((2 * S, C), device="cuda") if C else None
+    with pytest.raises(RuntimeError, match="volume_render_fwd: CUDA error"):
+        VR.volume_render(deltas, deltas.clone(), None, payload)
+    fits = deltas[:, :-1].contiguous()
+    ok = VR.volume_render(fits, fits.clone(), None,
+                          None if payload is None else payload[:2 * (S - 1)])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ok["weights"]).all())
 
 
 @pytest.mark.parametrize("S,C,payload_layout", K3B_CASES)
