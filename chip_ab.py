@@ -28,7 +28,7 @@ HERE = Path(__file__).resolve().parent
 KEEP = re.compile(r"^NVIDIA|^\s+time \w+:|sorted_accum on training keys|^\s+profiled (step|render):"
                   r"|peak device memory|steady step|render again|two calls bitwise equal|FAIL"
                   r"|L2-resident floor|^\s+render chunk \w+|profiler lost"
-                  r"|^\{\"kernels\"")
+                  r"|reading |long rays|sass: .*prop_grid|^\{\"kernels\"")
 
 
 def main(argv) -> int:

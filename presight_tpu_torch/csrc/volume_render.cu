@@ -37,13 +37,18 @@
 // The composite then runs over the staged rows, lanes over channels (a row
 // stride of C puts the lanes on consecutive floats), each lane summing up
 // to three channels in one pass over the samples, each in sample order.
-// The weights-only launches (proposal rounds) stage nothing. A ray whose
-// S x C rows do not fit in shared memory with its weights and row indices
-// (S * (C + 2) floats above 58,112, kSmemLimit: S > 842 at C = 67) is not
-// staged either: its composite reads the rows from device memory in the
-// same order, so it gives the same sums. S itself is limited to 29,056
-// with a payload and 58,112 without (one ray a block); beyond, the entry
-// returns cudaErrorInvalidValue.
+// The weights-only launches (proposal rounds) stage no rows. A ray is
+// staged only as far as shared memory holds it (kSmemLimit, one ray a
+// block at least): where its S x C rows do not fit with its weights and
+// row indices (S * (C + 2) floats above 58,112: S > 842 at C = 67), the
+// composite reads the rows from device memory; where its weights and row
+// indices do not fit either (S > 29,056 with a payload, S > 58,112
+// without), it keeps the weights in the `weights` output and reads the row
+// indices from payload_index. So K3 takes a ray of any length. The weight
+// pass, T_s and the sums K3b recomputes run in one order on every path;
+// the composite of an unstaged ray adds its samples in blocks of 32 (one
+// sum per block, then the block sums in order), since one running sum over
+// tens of thousands of samples drifts past 1e-5 of the composite.
 #include <float.h>
 
 #include "common.cuh"
@@ -51,6 +56,12 @@
 namespace {
 
 constexpr int kMaxRays = 4;  // rays (warps) per CUDA block
+constexpr int kBlock = 32;   // samples per partial composite sum of an unstaged ray
+
+// How much of a ray lives in shared memory: its weights, row indices and
+// payload rows (kStageRows), its weights and row indices (kStageSamples),
+// or nothing (kStageNone: weights in the output, indices in payload_index).
+enum Stage { kStageRows, kStageSamples, kStageNone };
 
 __device__ __forceinline__ float nan_to_num(float w) {
   if (isnan(w)) return 0.0f;
@@ -58,19 +69,20 @@ __device__ __forceinline__ float nan_to_num(float w) {
   return w;
 }
 
-// Floats of shared memory per ray: w_s, with a payload the row index of
-// each sample, and if staged the S x C payload rows.
-__host__ __device__ inline int64_t ray_smem_floats(int S, int C, bool with_payload,
-                                                   bool staged) {
-  return S + (with_payload ? S : 0) + (staged ? (int64_t)S * C : 0);
+// Floats of shared memory per ray at a stage: w_s, with a payload the row
+// index of each sample, and at kStageRows the S x C payload rows.
+__host__ __device__ inline int64_t ray_smem_floats(int S, int C, bool with_payload, int stage) {
+  if (stage == kStageNone) return 0;
+  return S + (with_payload ? S + (stage == kStageRows ? (int64_t)S * C : 0) : 0);
 }
 
+template <int kStage>
 __global__ void __launch_bounds__(kMaxRays * 32)
 volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restrict__ density,
                          const float* __restrict__ steps, const float* __restrict__ clip,
                          const float* __restrict__ payload,
                          const int32_t* __restrict__ payload_index, int64_t R, int S,
-                         int C, int staged, float threshold, float* __restrict__ weights,
+                         int C, float threshold, float* __restrict__ weights,
                          float* __restrict__ acc_out, float* __restrict__ depth_out,
                          float* __restrict__ expected_out, float* __restrict__ composite) {
   extern __shared__ float smem[];
@@ -78,10 +90,17 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
   const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (r >= R) return;  // whole warps exit together; only __syncwarp below
   const bool with_payload = payload != nullptr;
-  float* w_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload, staged);
-  int32_t* row_s = reinterpret_cast<int32_t*>(w_s + S);
-  float* tile_s = w_s + 2 * S;  // the ray's payload rows, S x C
+  const bool staged = kStage == kStageRows && with_payload;
   const int64_t base = r * S;
+  float* ray_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload, kStage);
+  float* w_s = kStage == kStageNone ? weights + base : ray_s;
+  int32_t* row_s = reinterpret_cast<int32_t*>(ray_s + S);
+  float* tile_s = ray_s + 2 * S;  // the ray's payload rows, S x C
+  // The payload row of sample s.
+  auto row_of = [&](int s) -> int64_t {
+    if (kStage != kStageNone) return row_s[s];
+    return payload_index != nullptr ? payload_index[base + s] : base + s;
+  };
 
   // The first chunk's inputs of the weight pass, loaded before the copies.
   float d_next = 0.0f, sig_next = 0.0f, t_next = 0.0f;
@@ -92,7 +111,7 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
   }
 
   // Start the copies of the payload rows.
-  if (with_payload) {
+  if (kStage != kStageNone && with_payload) {
     for (int s = lane; s < S; s += 32) {
       row_s[s] = payload_index != nullptr ? payload_index[base + s] : (int32_t)(base + s);
     }
@@ -133,7 +152,7 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
     wcarry = __shfl_sync(kFullMask, cum, 31);
     if (valid) {
       weights[base + s] = w;
-      w_s[s] = w;
+      if (kStage != kStageNone) w_s[s] = w;
     }
     if (steps != nullptr) {
       below += __popc(__ballot_sync(kFullMask, valid && cum < threshold));
@@ -155,25 +174,59 @@ volume_render_fwd_kernel(const float* __restrict__ deltas, const float* __restri
   }
 
   if (with_payload) {
-    cp_async_wait<0>();
-    __syncwarp();
+    if (staged) cp_async_wait<0>();
+    __syncwarp();  // also orders the weights written to device memory (kStageNone)
     // Each lane sums up to three channels (c, c + 32, c + 64) in one pass
-    // over the samples, each in sample order.
+    // over the samples, each in sample order; an unstaged ray's samples in
+    // blocks of kBlock, each block's sum then to the total.
     for (int c = lane; c < C; c += 96) {
       const bool has1 = c + 32 < C, has2 = c + 64 < C;
       float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-      for (int s = 0; s < S; ++s) {
-        const float w = w_s[s];
-        const float* row = staged ? tile_s + s * C + c : payload + (int64_t)row_s[s] * C + c;
-        acc0 += w * row[0];
-        if (has1) acc1 += w * row[32];
-        if (has2) acc2 += w * row[64];
+      if constexpr (kStage == kStageRows) {
+        for (int s = 0; s < S; ++s) {
+          const float w = w_s[s];
+          const float* row = staged ? tile_s + s * C + c : payload + row_of(s) * C + c;
+          acc0 += w * row[0];
+          if (has1) acc1 += w * row[32];
+          if (has2) acc2 += w * row[64];
+        }
+      } else {
+        float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f;
+        for (int s = 0; s < S; ++s) {
+          const float w = w_s[s];
+          const float* row = payload + row_of(s) * C + c;
+          b0 += w * row[0];
+          if (has1) b1 += w * row[32];
+          if (has2) b2 += w * row[64];
+          if (s % kBlock == kBlock - 1 || s == S - 1) {
+            acc0 += b0;
+            acc1 += b1;
+            acc2 += b2;
+            b0 = b1 = b2 = 0.0f;
+          }
+        }
       }
       composite[r * C + c] = acc0;
       if (has1) composite[r * C + c + 32] = acc1;
       if (has2) composite[r * C + c + 64] = acc2;
     }
   }
+}
+
+template <int kStage>
+cudaError_t launch(int rays, size_t smem, cudaStream_t st, const float* deltas,
+                   const float* density, const float* steps, const float* clip,
+                   const float* payload, const int32_t* payload_index, int64_t R, int S, int C,
+                   float threshold, float* weights, float* acc_out, float* depth_out,
+                   float* expected_out, float* composite) {
+  cudaError_t err = cudaFuncSetAttribute(volume_render_fwd_kernel<kStage>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  volume_render_fwd_kernel<kStage><<<ceil_div64(R, rays), rays * 32, smem, st>>>(
+      deltas, density, steps, clip, payload, payload_index, R, S, C, threshold, weights,
+      acc_out, depth_out, expected_out, composite);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -190,21 +243,20 @@ PTK_EXPORT int volume_render_fwd(const float* deltas, const float* density, cons
   const bool with_payload = payload != nullptr;
   if (S < 1 || (with_payload && C < 1)) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaGetLastError();
-  // Stage the payload rows where one ray's fit in shared memory.
-  const bool staged = with_payload &&
-                      ray_smem_floats(S, C, true, true) * sizeof(float) <= (size_t)kSmemLimit;
+  // Stage as much of one ray as fits in shared memory.
+  int stage = kStageRows;
+  while (stage != kStageNone &&
+         ray_smem_floats(S, C, with_payload, stage) * sizeof(float) > (size_t)kSmemLimit) {
+    ++stage;
+  }
   int rays = kMaxRays;
-  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload, staged) * sizeof(float);
+  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload, stage) * sizeof(float);
   while (rays > 1 && rays * per_ray > (size_t)kSmemLimit) rays /= 2;
-  if (rays * per_ray > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;  // S too large
-  const size_t smem = rays * per_ray;
-  cudaError_t err = cudaFuncSetAttribute(volume_render_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  volume_render_fwd_kernel<<<ceil_div64(R, rays), rays * 32, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      deltas, density, steps, clip, payload, payload_index, R, S, C, staged, threshold, weights,
-      acc_out, depth_out, expected_out, composite);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = stage == kStageRows      ? &launch<kStageRows>
+                   : stage == kStageSamples ? &launch<kStageSamples>
+                                            : &launch<kStageNone>;
+  return (int)run(rays, rays * per_ray, st, deltas, density, steps, clip, payload,
+                  payload_index, R, S, C, threshold, weights, acc_out, depth_out, expected_out,
+                  composite);
 }

@@ -42,13 +42,32 @@
 // sums. Rows of d_payload that no sample reads (padding slots) are zeroed
 // by one memset in the same call. The weights-only launch (proposal
 // rounds) runs passes 1 and 3.
+//
+// A ray is staged only as far as shared memory holds it (kSmemLimit, one
+// ray a block at least): where its S x C payload rows do not fit (4S + C +
+// S * C floats above 58,112: S > 817 at C = 67), passes 2 read them from
+// device memory; where the per-sample arrays do not fit either (4S + C
+// floats with a payload, 3S without), w_s is read from `weights`, the row
+// indices from payload_index, dL/dcomposite from g_comp, gw_s is kept in
+// d_density (each lane rewrites only its own samples) and T_s in a scratch
+// buffer of R x S floats that the wrapper allocates for such rays only
+// (volume_render_bwd_scratch_floats). Every path recomputes T_s, a and b as
+// K3 does and sums in the same order, so K3b takes a ray of any length and
+// gives the same bits on each.
 #include <float.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxRays = 4;  // rays (warps) per CUDA block
+
+// How much of a ray lives in shared memory (as in K3): the per-sample
+// arrays, dL/dcomposite and the payload rows (kStageRows), all but the
+// payload rows (kStageSamples), or nothing (kStageNone).
+enum Stage { kStageRows, kStageSamples, kStageNone };
 
 __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   // d/dx min(max(x, lo), hi) as JAX differentiates it (0.5 at a tie).
@@ -58,12 +77,25 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   return a * b;
 }
 
-// Floats of shared memory per ray: T_s, gw_s, w_s, and with a payload the
-// row index of each sample, dL/dcomposite and the S x C payload rows.
-__host__ __device__ __forceinline__ int ray_smem_floats(int S, int C, bool with_payload) {
-  return 3 * S + (with_payload ? S + C + S * C : 0);
+// Floats of shared memory per ray at a stage: T_s, gw_s, w_s, and with a
+// payload the row index of each sample, dL/dcomposite and at kStageRows the
+// S x C payload rows.
+__host__ __device__ inline int64_t ray_smem_floats(int S, int C, bool with_payload, int stage) {
+  if (stage == kStageNone) return 0;
+  return 3 * (int64_t)S +
+         (with_payload ? S + C + (stage == kStageRows ? (int64_t)S * C : 0) : 0);
 }
 
+int ray_stage(int S, int C, bool with_payload) {
+  int stage = kStageRows;
+  while (stage != kStageNone &&
+         ray_smem_floats(S, C, with_payload, stage) * sizeof(float) > (size_t)kSmemLimit) {
+    ++stage;
+  }
+  return stage;
+}
+
+template <int kStage>
 __global__ void __launch_bounds__(kMaxRays * 32)
 volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restrict__ density,
                          const float* __restrict__ steps, const float* __restrict__ clip,
@@ -72,32 +104,44 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
                          const float* __restrict__ weights, const float* __restrict__ g_w,
                          const float* __restrict__ g_acc, const float* __restrict__ g_exp,
                          const float* __restrict__ g_comp, int64_t R, int S, int C,
-                         float* __restrict__ d_density, float* __restrict__ d_payload) {
+                         float* __restrict__ d_density, float* __restrict__ d_payload,
+                         float* __restrict__ scratch) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + warp;
   if (r >= R) return;  // whole warps exit together; only __syncwarp below
   const bool with_payload = payload != nullptr;
-  float* trans_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload);  // T_s
-  float* gw_s = trans_s + S;  // dL/dw_s, then gw_s
-  float* w_s = gw_s + S;      // w_s
-  int32_t* row_s = reinterpret_cast<int32_t*>(w_s + S);  // payload row of each sample
-  float* gc_s = w_s + 2 * S;  // dL/dcomposite of the ray
-  float* tile_s = gc_s + C;   // the ray's payload rows, S x C
+  constexpr bool kStaged = kStage != kStageNone;
   const int64_t base = r * S;
+  float* ray_s = smem + (size_t)warp * ray_smem_floats(S, C, with_payload, kStage);
+  float* trans_s = kStaged ? ray_s : scratch + base;        // T_s
+  float* gw_s = kStaged ? ray_s + S : d_density + base;     // dL/dw_s, then gw_s
+  float* w_stage = ray_s + 2 * S;                           // w_s, when staged
+  const float* w_s = kStaged ? w_stage : weights + base;
+  int32_t* row_s = reinterpret_cast<int32_t*>(ray_s + 3 * S);  // payload row of each sample
+  float* gc_stage = ray_s + 4 * S;                          // dL/dcomposite, when staged
+  const float* gc_s = kStaged || !with_payload ? gc_stage : g_comp + r * C;
+  float* tile_s = gc_stage + C;  // the ray's payload rows, S x C (kStageRows)
   const int q = with_payload ? 32 / C : 0, rem = with_payload ? 32 % C : 0;
+  // The payload row of sample s.
+  auto row_of = [&](int s) -> int64_t {
+    if (kStaged) return row_s[s];
+    return payload_index != nullptr ? payload_index[base + s] : base + s;
+  };
 
   // Start the copies of the payload rows and of dL/dcomposite.
-  if (with_payload) {
+  if (kStaged && with_payload) {
     for (int s = lane; s < S; s += 32) {
       row_s[s] = payload_index != nullptr ? payload_index[base + s] : (int32_t)(base + s);
     }
-    for (int c = lane; c < C; c += 32) cp_async4(gc_s + c, g_comp + r * C + c);
+    for (int c = lane; c < C; c += 32) cp_async4(gc_stage + c, g_comp + r * C + c);
     __syncwarp();
-    int s = lane / C, c = lane % C;
-    for (int k = lane; k < S * C; k += 32) {
-      cp_async4(tile_s + k, payload + (int64_t)row_s[s] * C + c);
-      step32(s, c, q, rem, C);
+    if (kStage == kStageRows) {
+      int s = lane / C, c = lane % C;
+      for (int k = lane; k < S * C; k += 32) {
+        cp_async4(tile_s + k, payload + (int64_t)row_s[s] * C + c);
+        step32(s, c, q, rem, C);
+      }
     }
     cp_async_commit();
   }
@@ -118,7 +162,7 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
     carry += __shfl_sync(kFullMask, inc, 31);
     if (valid && (steps != nullptr || with_payload)) {
       const float w = weights[base + s];
-      w_s[s] = w;
+      if (kStaged) w_stage[s] = w;
       if (steps != nullptr) {
         wsum += w;
         wtsum += w * steps[base + s];
@@ -134,14 +178,14 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
     inv_b = 1.0f / b;
     a_over_b2 = wtsum / (b * b);
   }
-  if (with_payload) cp_async_wait<0>();
+  if (kStaged && with_payload) cp_async_wait<0>();
   __syncwarp();
 
   // Pass 2: each lane the gradient of its own samples' weights.
   for (int s = lane; s < S; s += 32) {
     float gw = gw_s[s];
     if (with_payload) {
-      const float* row = tile_s + s * C;
+      const float* row = kStage == kStageRows ? tile_s + s * C : payload + row_of(s) * C;
       float dot = 0.0f;
       for (int c = 0; c < C; ++c) dot += gc_s[c] * row[c];
       gw += dot;
@@ -154,9 +198,11 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
   }
   // The payload rows' gradients, consecutive lanes on consecutive floats.
   if (with_payload) {
+    // (S x C may pass 2^31 only where the rows are not staged.)
+    using Index = typename std::conditional<kStage == kStageRows, int, int64_t>::type;
     int s = lane / C, c = lane % C;
-    for (int k = lane; k < S * C; k += 32) {
-      d_payload[(int64_t)row_s[s] * C + c] = w_s[s] * gc_s[c];
+    for (Index k = lane; k < (Index)S * C; k += 32) {
+      d_payload[row_of(s) * C + c] = w_s[s] * gc_s[c];
       step32(s, c, q, rem, C);
     }
   }
@@ -194,18 +240,43 @@ volume_render_bwd_kernel(const float* __restrict__ deltas, const float* __restri
   }
 }
 
+template <int kStage>
+cudaError_t launch(int rays, size_t smem, cudaStream_t st, const float* deltas,
+                   const float* density, const float* steps, const float* clip,
+                   const float* payload, const int32_t* payload_index, const float* weights,
+                   const float* g_w, const float* g_acc, const float* g_exp, const float* g_comp,
+                   int64_t R, int S, int C, float* d_density, float* d_payload, float* scratch) {
+  cudaError_t err = cudaFuncSetAttribute(volume_render_bwd_kernel<kStage>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  volume_render_bwd_kernel<kStage><<<ceil_div64(R, rays), rays * 32, smem, st>>>(
+      deltas, density, steps, clip, payload, payload_index, weights, g_w, g_acc, g_exp, g_comp,
+      R, S, C, d_density, d_payload, scratch);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Floats of the scratch buffer volume_render_bwd needs for R rays of S
+// samples (0 unless a ray's per-sample arrays do not fit in shared memory).
+PTK_EXPORT int64_t volume_render_bwd_scratch_floats(int64_t R, int S, int C, int with_payload) {
+  return ray_stage(S, C, with_payload != 0) == kStageNone ? R * S : 0;
+}
 
 // steps, clip, g_acc and g_exp are null together (weights only); payload,
 // g_comp and d_payload are null together (P payload rows of C floats);
 // payload_index may be null (rows in sample order). clip is a device pointer
-// to {min, max} of steps. d_payload is zeroed here, then written.
+// to {min, max} of steps. d_payload is zeroed here, then written. scratch
+// holds volume_render_bwd_scratch_floats(R, S, C, payload != null) floats
+// (null where that is 0).
 PTK_EXPORT int volume_render_bwd(const float* deltas, const float* density, const float* steps,
                                  const float* clip, const float* payload,
                                  const int32_t* payload_index, const float* weights,
                                  const float* g_w, const float* g_acc, const float* g_exp,
                                  const float* g_comp, int64_t R, int S, int C, int64_t P,
-                                 float* d_density, float* d_payload, void* stream) {
+                                 float* d_density, float* d_payload, float* scratch,
+                                 void* stream) {
   const bool with_payload = payload != nullptr;
   if (S < 1 || (with_payload && C < 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -214,17 +285,15 @@ PTK_EXPORT int volume_render_bwd(const float* deltas, const float* density, cons
     if (err != cudaSuccess) return (int)err;
   }
   if (R == 0) return (int)cudaGetLastError();
+  const int stage = ray_stage(S, C, with_payload);
+  if (stage == kStageNone && scratch == nullptr) return (int)cudaErrorInvalidValue;
   int rays = kMaxRays;
-  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload) * sizeof(float);
+  const size_t per_ray = (size_t)ray_smem_floats(S, C, with_payload, stage) * sizeof(float);
   while (rays > 1 && rays * per_ray > (size_t)kSmemLimit) rays /= 2;
-  if (rays * per_ray > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;  // S x C too large
-  const size_t smem = rays * per_ray;
-  cudaError_t err = cudaFuncSetAttribute(volume_render_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  volume_render_bwd_kernel<<<ceil_div64(R, rays), rays * 32, smem, st>>>(
-      deltas, density, steps, clip, payload, payload_index, weights, g_w, g_acc, g_exp, g_comp,
-      R, S, C, d_density, d_payload);
-  return (int)cudaGetLastError();
+  const auto run = stage == kStageRows      ? &launch<kStageRows>
+                   : stage == kStageSamples ? &launch<kStageSamples>
+                                            : &launch<kStageNone>;
+  return (int)run(rays, rays * per_ray, st, deltas, density, steps, clip, payload,
+                  payload_index, weights, g_w, g_acc, g_exp, g_comp, R, S, C, d_density,
+                  d_payload, scratch);
 }

@@ -61,12 +61,18 @@ _ARGTYPES = {
     "mlp_blocks_bwd": [_P, _P, _P, _I64, _I64, _I64, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                        _P, _P],
     # deltas, density, steps, clip, payload, payload_index, weights, g_w,
-    # g_acc, g_exp, g_comp, R, S, C, P, d_density, d_payload, stream
+    # g_acc, g_exp, g_comp, R, S, C, P, d_density, d_payload, scratch, stream
     "volume_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64,
-                          _P, _P, _P],
+                          _P, _P, _P, _P],
     # keys, order, rows, n, C, out parts (host array), num_parts, part_rows,
     # vec, scratch, flags, stream
     "sorted_accum": [_P, _P, _P, _I64, _I, _P, _I, _I64, _I, _P, _P, _P],
+}
+
+# C functions that launch nothing: (argtypes, restype).
+_QUERIES = {
+    # R, S, C, with_payload -> floats of K3b's scratch buffer
+    "volume_render_bwd_scratch_floats": ([_I64, _I, _I, _I], _I64),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,6 +153,9 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _QUERIES.items():
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _lib = handle
     return _lib
 

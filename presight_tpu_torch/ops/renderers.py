@@ -94,11 +94,12 @@ def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
                       threshold: float = 0.5,
                       clip: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Wrapper of K3 (see volume_render_plain for the contract); ``clip``:
-    step_bounds(steps), computed here when not given. The kernel stages a
-    ray's payload rows in shared memory where S * (C + 2) floats fit
-    (58,112: S <= 842 at C = 67) and reads them from device memory
-    otherwise; it takes S up to 29,056 with a payload and 58,112 without,
-    and raises beyond."""
+    step_bounds(steps), computed here when not given. The kernel takes a ray
+    of any length: it stages a ray's payload rows in shared memory where
+    S * (C + 2) floats fit (58,112: S <= 842 at C = 67), reads them from
+    device memory otherwise, and keeps the weights in the output where S
+    weights and row indices do not fit either; the sums run in one order on
+    every path."""
     if deltas.device.type == "cpu":
         return volume_render_plain(deltas, density, steps, payload, payload_index,
                                    threshold)
@@ -205,7 +206,13 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
                       clip: Optional[torch.Tensor]):
     """Wrapper of K3b (see volume_render_bwd_plain for the contract);
     ``clip``: step_bounds(steps) as the forward used it (None without
-    steps). The kernel zeroes the payload rows no sample reads."""
+    steps). The kernel zeroes the payload rows no sample reads. It takes a
+    ray of any length: it stages a ray's payload rows in shared memory where
+    4S + C + S * C floats fit (58,112: S <= 817 at C = 67), reads them from
+    device memory otherwise, and where the per-sample arrays do not fit
+    either keeps them in device memory, in a scratch buffer of R x S floats
+    allocated here for such rays only. T_s and the expected depth's sums are
+    K3's on every path."""
     if deltas.device.type == "cpu":
         return volume_render_bwd_plain(deltas, density, steps, payload, payload_index, weights,
                                        g_weights, g_acc, g_expected, g_composite)
@@ -229,12 +236,16 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
     kernels.require_cuda("volume_render_bwd", *tensors)
     d_density = torch.empty_like(density)
     d_payload = None if payload is None else torch.empty_like(payload)
-    code = kernels.lib().volume_render_bwd(
+    lib = kernels.lib()
+    n_scratch = lib.volume_render_bwd_scratch_floats(r, s, c, payload is not None)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=deltas.device) if n_scratch \
+        else None
+    code = lib.volume_render_bwd(
         deltas.data_ptr(), density.data_ptr(), kernels.ptr(steps), kernels.ptr(clip),
         kernels.ptr(payload), kernels.ptr(payload_index), weights.data_ptr(),
         g_weights.data_ptr(), kernels.ptr(g_acc), kernels.ptr(g_expected),
         kernels.ptr(g_composite), r, s, c, 0 if payload is None else payload.shape[0],
-        d_density.data_ptr(), kernels.ptr(d_payload), kernels.stream())
+        d_density.data_ptr(), kernels.ptr(d_payload), kernels.ptr(scratch), kernels.stream())
     kernels.check("volume_render_bwd", code)
     kernels.LAUNCHES["volume_render_bwd"] += 1
     return d_density, d_payload

@@ -178,6 +178,70 @@ def test_expert_routing_near_bisectors_matches_cpu():
                                rtol=1e-5, atol=1e-6)
 
 
+def _k4_scene(E):
+    """E experts with integer centroids 8 apart on a square grid and AABBs
+    c +- 4 (extent 8): a world offset q from a centroid maps to x = q / 4
+    exactly, and with G cells to the face of a cell where q is a multiple
+    of 16 / G."""
+    side = int(np.ceil(np.sqrt(E)))
+    xs, ys = torch.meshgrid(torch.arange(float(side)), torch.arange(float(side)), indexing="ij")
+    cent = torch.stack([xs.ravel() * 8.0 - 8.0, ys.ravel() * 8.0 - 8.0, torch.zeros(side * side)],
+                       -1)[:E].contiguous()
+    aabbs = torch.stack([cent - 4.0, cent + 4.0], 1).contiguous()
+    return cent, aabbs
+
+
+def _k4_positions(cent, G, gen, n_random=1037):
+    """Positions on cell faces (inside an AABB, where the contraction is
+    the identity), at and within 1e-6 of centroid bisectors (a tie of the
+    squared distances goes to the first expert), on AABB faces, outside
+    every AABB (and so far out that the selector is 0), and random over and
+    around the tile."""
+    E = cent.shape[0]
+    k = torch.randint(0, E, (4 * n_random,), generator=gen)
+    q = torch.randint(-(G // 4), G // 4 + 1, (4 * n_random, 3), generator=gen) * (16.0 / G)
+    faces = cent[k] + q
+    half = cent[k] + torch.tensor([4.0, 0.0, 0.0])  # the bisector with the next expert in x
+    half[:, 1:] += torch.randint(-8, 9, (4 * n_random, 2), generator=gen) * 0.5
+    near = half.clone()
+    near[:, 0] += (torch.rand(4 * n_random, generator=gen) - 0.5) * 2e-6
+    aabb_face = cent[k] + torch.tensor([0.0, 0.0, 4.0]) * torch.where(
+        torch.rand(4 * n_random, 1, generator=gen) < 0.5, -1.0, 1.0)
+    lo, hi = cent.min(0).values - 4.0, cent.max(0).values + 4.0
+    far = lo - 30.0 + torch.rand((n_random, 3), generator=gen) * (hi - lo + 60.0)
+    far[:, 2] = torch.where(far[:, 2] < 0, far[:, 2] - 5.0, far[:, 2] + 5.0)  # outside every AABB
+    spread = lo - 8.0 + torch.rand((n_random, 3), generator=gen) * (hi - lo + 16.0)
+    huge = far[:64] * 1e8  # contracted onto the domain's edge: selector 0
+    return torch.cat([faces, half, near, aabb_face, far, spread, huge]).contiguous()
+
+
+@pytest.mark.parametrize("G", [8, 64])
+@pytest.mark.parametrize("E", [1, 16, 64])
+def test_prop_grid_kernel_matches_plain(E, G):
+    """K4 against its plain version (atol 1e-6 + rtol 1e-5) on a random
+    grid, where a sample in another cell or routed to another expert reads
+    another row: positions on cell faces, at and near centroid bisectors,
+    on AABB faces, outside every AABB and at random; a count that is not a
+    multiple of a block's samples; 2^18 + 5 samples (each block loops over
+    several tiles), with positions 16-byte aligned and not; two calls
+    bitwise equal."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(E * 100 + G)
+    cent, aabbs = _k4_scene(E)
+    pos = _k4_positions(cent, G, gen)
+    grid = torch.rand((E * G ** 3, 8), generator=gen)
+    args = [t.cuda() for t in (grid, cent, aabbs)]
+    wide = pos.repeat((1 << 18) // pos.shape[0] + 1, 1)[:(1 << 18) + 5].cuda()
+    shifted = torch.empty(wide.numel() + 1, device="cuda")[1:].view(wide.shape).copy_(wide)
+    for x in (pos.cuda(), wide, shifted):
+        kernels.reset_launches()
+        got = PF.prop_grid_density(*args, x, G)
+        assert kernels.LAUNCHES["prop_grid_density_fwd"] == 1
+        torch.testing.assert_close(got, PF.prop_grid_density_plain(*args, x, G), rtol=1e-5,
+                                   atol=1e-6)
+        assert torch.equal(got, PF.prop_grid_density(*args, x, G))
+
+
 def test_render_kernel_path_matches_plain_path(cuda_model):
     """The same small model rendered through the kernels (CUDA tensors) and
     through the plain versions (CPU tensors)."""
@@ -408,7 +472,8 @@ def test_mlp_kernels_at_each_automatic_rows_per_cta(rows):
 
 
 K3B_CASES = ([(S, C, layout) for S in (32, 40, 48, 72) for C in (3, 67)
-              for layout in ("padded", "in order")] + [(S, 0, "none") for S in (32, 40, 48, 72)])
+              for layout in ("padded", "in order")] + [(S, 0, "none") for S in (32, 40, 48, 72)]
+             + [(1024, 67, layout) for layout in ("padded", "in order")])
 
 
 K3_CASES = ([(S, C, layout) for S in (1, 31, 32, 33, 48, 64) for C in (3, 64, 67)
@@ -456,20 +521,39 @@ def test_volume_render_kernel_matches_plain(S, C, payload_layout):
 
 
 @pytest.mark.parametrize("C", [0, 3])
-def test_volume_render_kernel_rejects_rays_past_shared_memory(C):
-    """A ray needs two floats of shared memory a sample with a payload and
-    one without: S one past what one ray a block can hold raises."""
+def test_volume_render_kernels_take_rays_past_shared_memory(C):
+    """The lengths K3 refused before its per-sample arrays could live in
+    device memory (S = 29,057 with a payload, 58,113 without; one ray a
+    block can hold neither's weights and row indices, nor K3b's per-sample
+    arrays): K3 and K3b against their plain versions, K3b through its
+    scratch buffer, and two calls of each bitwise equal."""
     _need_cuda()
-    S = 29_057 if C else 58_113
-    deltas = torch.full((2, S), 1e-3, device="cuda")
-    payload = torch.rand((2 * S, C), device="cuda") if C else None
-    with pytest.raises(RuntimeError, match="volume_render_fwd: CUDA error"):
-        VR.volume_render(deltas, deltas.clone(), None, payload)
-    fits = deltas[:, :-1].contiguous()
-    ok = VR.volume_render(fits, fits.clone(), None,
-                          None if payload is None else payload[:2 * (S - 1)])
-    torch.cuda.synchronize()
-    assert bool(torch.isfinite(ok["weights"]).all())
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    R, S = 2, (29_057 if C else 58_113)
+    deltas = torch.rand((R, S), generator=gen, device="cuda") * 2e-5  # optical depth ~10
+    dens = torch.exp(torch.randn((R, S), generator=gen, device="cuda") * 2.0) * 4.0
+    steps = torch.cumsum(deltas, -1) + 0.005
+    payload = torch.rand((R * S, C), generator=gen, device="cuda") if C else None
+    assert kernels.lib().volume_render_bwd_scratch_floats(R, S, C, C > 0) == R * S
+    kernels.reset_launches()
+    got = VR.volume_render(deltas, dens, steps, payload)
+    want = VR.volume_render_plain(deltas, dens, steps, payload)
+    for key in ["weights", "accumulation", "expected_depth"] + (["composite"] if C else []):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(got[key], again)
+               for key, again in VR.volume_render(deltas, dens, steps, payload).items())
+    ups = [torch.randn(shape, generator=gen, device="cuda") for shape in ((R, S), (R,), (R,))]
+    gcomp = torch.randn((R, C), generator=gen, device="cuda") if C else None
+    args = (deltas, dens, steps, payload, None, got["weights"], *ups, gcomp)
+    grads = VR.volume_render_bwd(*args, VR.step_bounds(steps))
+    want = VR.volume_render_bwd_plain(*args)
+    _close_scaled(grads[0], want[0])
+    if C:
+        _close_scaled(grads[1], want[1])
+    again = VR.volume_render_bwd(*args, VR.step_bounds(steps))
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(grads, again))
+    assert kernels.LAUNCHES["volume_render_fwd"] == 2
+    assert kernels.LAUNCHES["volume_render_bwd"] == 2
 
 
 @pytest.mark.parametrize("S,C,payload_layout", K3B_CASES)
@@ -477,7 +561,9 @@ def test_volume_render_bwd_kernel_matches_plain(S, C, payload_layout):
     """Every upstream gradient non-zero; saturated and empty rays present;
     sample counts that fill one, one and a part, and more than two warp
     chunks; payload rows through a padded index (rows no sample reads get
-    zeros), in sample order, or no payload; and the weights-only launch."""
+    zeros), in sample order, or no payload; a ray whose S x C payload does
+    not fit in shared memory (S = 1024, C = 67: the rows are read from
+    device memory); and the weights-only launch."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(4)
     R = 300
