@@ -9,9 +9,11 @@ tree's again (each builds its own kernels under its own build/), writes
 each run's whole output to chiprun_out/ab/<n>_<tree>.log, and prints, per
 run, its exit code and the lines that carry the numbers compared: the card
 and its power limit, kernel times and bounds, K5 on training keys, the
-profiled step and render (device busy, per-kernel device time), K1's
-L2-resident floor, K1 and K3 on a recorded render chunk, peak memory, the
-steady step and the kernels JSON line. Exits nonzero if any run failed. To measure the base tree's kernels with this tree's
+profiled steps and renders of both profiles (device busy, per-kernel
+device time), K1's L2-resident floor, K1 and K3 on a recorded render
+chunk, the reference architecture's kernel timings, the 2^19 checks, peak
+memory, the steady steps, render and extraction times, the phase headers
+and the kernels JSON line. Exits nonzero if any run failed. To measure the base tree's kernels with this tree's
 script, copy this chip_smoke.py into the base tree first: both then print
 the same lines (the kernels' wrappers keep their signatures).
 """
@@ -25,10 +27,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-KEEP = re.compile(r"^NVIDIA|^\s+time \w+:|sorted_accum on training keys|^\s+profiled (step|render):"
+KEEP = re.compile(r"^NVIDIA|^\s+time \w+:|sorted_accum on (reference )?training keys"
+                  r"|^\s+profiled (reference )?(step|render):"
                   r"|peak device memory|steady step|render again|two calls bitwise equal|FAIL"
-                  r"|L2-resident floor|^\s+render chunk \w+|profiler lost"
-                  r"|reading |long rays|sass: .*prop_grid|^\{\"kernels\"")
+                  r"|L2-resident floor|^\s+render chunk \w+|profiler lost|longer spin"
+                  r"|2\^19.*(kernel|runs)"
+                  r"|reference (chunk|microbatch).*kernel|^\s+render \d+x\d+|extraction:"
+                  r"|reading |long rays|sass: .*prop_grid|^phase|^\{\"kernels\"")
 
 
 def main(argv) -> int:

@@ -12,8 +12,9 @@ Phases (any failure exits nonzero before the result lines are printed):
   3. check each forward kernel (K1-K4) against its plain PyTorch version on
      the card at the main path's shapes, with the stated tolerances, and
      time both with CUDA events (median of 10 calls after warm-up;
-     time_ms), the kernel also by its device time (torch.profiler, the
-     host's share left out; device_ms); K2 also as a chain of one-layer
+     time_ms), the kernel also by its device time (CUDA events around ten
+     calls queued behind a spin kernel, the host's share left out;
+     device_ms); K2 also as a chain of one-layer
      launches, which must equal the fused launch bitwise, and its ReLU
      masks against the plain forward's (flips only at ties: RELU_TIE_ATOL,
      RELU_TIE_SHARE); K1 also with 2^14-row tables, every row in L2 (its
@@ -26,8 +27,8 @@ Phases (any failure exits nonzero before the result lines are printed):
      the main field, of K3's final render and of K4 in its sixth chunk, and
      extract priors from one 6-camera frame at downscale 5; check finite
      outputs, the pickle schema, and that K1-K4 were launched on this path;
-     render twice more, the second time under torch.profiler (between spin
-     kernels, and profiled again where the profiler lost a kernel's events;
+     render twice more, the second time under torch.profiler (padded_profile,
+     and profiled again where the profiler lost a kernel's events;
      device busy, each kernel's device time and launches in the render: render_ms,
      render_launches; the table goes to
      outputs/chip_smoke/render_profile.txt); check and time K1, K3 and K4
@@ -50,22 +51,52 @@ Phases (any failure exits nonzero before the result lines are printed):
      of the eight kernels was not launched on the training path; check and
      time K5 on the inputs of a training microbatch as phase 6 does (failing
      if no microbatch's inputs were recorded), and the chain torch.sort + K5
-     against index_add_ on the unsorted pairs; then
-     one more step under torch.profiler (as the render in phase 4): the
-     device's busy time and idle
-     share, each kernel's device time and launches in the step (step_ms,
-     step_launches), the hash backward's and AccumulateGrad's device time,
-     and a check that AccumulateGrad never ran on a hash table (the table
-     goes to outputs/chip_smoke/train_profile.txt);
+     against index_add_ on the unsorted pairs;
   8. hold the training kernel path against the plain path for one step on
      the same weights, 2048-ray batch and draws (the plain path on the CPU):
      losses, every gradient leaf and the updated parameters.
-The line before the last is a JSON object with each kernel's launches (on
-the serving and the training path), error, times (ms, plain_ms and
-library_ms by CUDA events; device_ms by the profiler), bound, and device
-time and launches in one training step (step_ms, step_launches) and in one
-450x800 render (render_ms, render_launches); the last line is {"ok": true,
-"device": {...}}. Writes the prior pickle and the profile tables under
+Phases 9-12 drive the reference architecture (a hash-field first proposal
+round, per-expert proposal MLPs, 'corner' tables: the JAX package's
+defaults):
+  9. the executed reference golden (tests/goldens/full_model.npz) imported
+     onto the card by engine/import_reference.py: the eval forward through
+     K1-K3 under tests/test_full_model_parity.py's quantile checks, and the
+     field queries at its tolerances;
+ 10. serve boston-seaport-camera-dino-c0 at full width from a seed, in
+     scene_at_camera_height() (centroids at the cameras' height, so samples
+     fall inside the experts' AABBs): one 450x800 render and one 6-camera
+     extraction frame at downscale 5, as phase 4; K1-K3 launched and K4
+     not; a second render, then one under torch.profiler (render_reference_ms,
+     render_reference_launches); K1 (round 0's proposal field at F = 1, the
+     main field at F = 4), K2 (round 0's grouped proposal MLP) and K3 (round
+     0's weights at S = 128, the final render) checked and timed on the
+     inputs recorded from the sixth render chunk; a 16 x 32 render against
+     the same model's plain path on the CPU;
+ 11. train it: 5 steps of 65,536 rays in microbatches of 4096 as phase 7
+     (K1, K1b, K2, K2b, K3, K3b and K5 launched, K4 not); K1b, K2b and K3b
+     checked and timed on the first microbatch's recorded inputs (K3b's d
+     density against the float64 formula within an f32 error bound that
+     planted faults must fail: check_k3b_density), K5 on the
+     recorded main-field (C = 4) and proposal-field (C = 1) pairs against
+     its plain version and index_add_;
+ 12. one 4096-ray step (two microbatches of 2048) of it against the plain
+     path on the CPU, as phase 8;
+ 13. one more training step of each profile under torch.profiler: the
+     device's busy time and idle share, each kernel's device
+     time and launches in the step (step_ms and step_launches,
+     step_reference_ms and step_reference_launches), the hash backward's and
+     AccumulateGrad's device time, and a check that AccumulateGrad never ran
+     on a hash table (the tables go to outputs/chip_smoke/train_profile.txt
+     and train_reference_profile.txt).
+Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
+rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
+The line before the last is a JSON object with each kernel's launches (in
+all, and by path: serve, train, serve_reference, train_reference), error,
+times (ms, plain_ms and library_ms by CUDA events around one call;
+device_ms by CUDA events around ten calls queued behind a spin), bound,
+and device time (torch.profiler) and launches in one training step and in
+one 450x800 render of each profile; the last line is {"ok": true,
+"device": {...}}. Writes the prior pickles and the profile tables under
 outputs/chip_smoke/.
 """
 
@@ -135,6 +166,7 @@ RELU_TIE_ATOL = 1e-5
 RELU_TIE_SHARE = 1e-4
 TRAIN_STEPS = 5
 TRAIN_HW = (225, 400)
+RENDER_HW = (450, 800)
 
 
 def sass_report(lib_path: Path) -> None:
@@ -175,54 +207,89 @@ def time_ms(fn, reps: int = 10) -> float:
 
 
 SPIN = "spin_kernel"  # torch.cuda._sleep's kernel: the padding of a profile
+# Host time that pads each end of a profiler session. The profiler keeps a
+# device event only inside the session's window on the host's clock, and
+# on an H100 it placed device events up to 13 ms before their launches in
+# some sessions (launch_lead_us): sessions padded by spin kernels alone (a
+# few microseconds) lost one of ten calls' events, again and again.
+WINDOW_PAD_S = 0.05
 
 
-def device_events(fn, reps: int = 10, pad: int = 4):
-    """The device events (kernels, memsets, copies) of ``reps`` calls of
-    fn() after two warm-up calls, by torch.profiler. The profiler has
-    dropped records of a session's last launches (always one of ten
-    index_add_ calls on a training microbatch's rows, in three sessions
-    running), so the calls sit between ``pad`` short spin kernels on each
-    side, which are left out."""
+def _pad_window():
+    for _ in range(4):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(WINDOW_PAD_S)
+
+
+@contextlib.contextmanager
+def padded_profile():
+    """A torch.profiler session of the CPU and the card whose calls sit
+    between spin kernels (left out of every reading) and WINDOW_PAD_S of
+    host time at each end."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(pad):
-            torch.cuda._sleep(1000)
+        _pad_window()
+        yield prof
         torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        for _ in range(pad):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        _pad_window()
+
+
+def device_of(prof):
+    """A session's device events (kernels, memsets, copies), spins left out."""
     return [e for e in prof.events() if e.device_type.name == "CUDA" and SPIN not in e.name]
 
 
-def device_ms(fn, reps: int = 10, kernel: str = "", tries: int = 5) -> float:
-    """Device milliseconds per call of fn(): the summed durations of the
-    kernels, memsets and copies it runs on the card over ``reps`` calls,
-    over ``reps``. The host's share of a call (Python, a wrapper's checks and
-    allocations, the launch), which time_ms counts, is left out. Where the
-    profiler still lost events (a K3 call once summed to 0.06 ms, under half
-    its bound) -- some name's events are not a multiple of ``reps``, or the
-    main __global__ of ``kernel`` (a KERNEL_GLOBALS key) has none -- the
-    calls are profiled again, up to ``tries`` runs in all, and then it
-    raises."""
-    must = KERNEL_GLOBALS[kernel][:1] if kernel else ()
+def launch_lead_us(prof):
+    """The least time in microseconds from a host-side launch call to the
+    start of the device event it launched (pairs by correlation id), over a
+    session: a negative value means the profiler placed the device's clock
+    ahead of the host's by at least that much. None without pairs."""
+    launches = {e.id: e.time_range.start for e in prof.events()
+                if e.device_type.name == "CPU" and ("Launch" in e.name or "Memset" in e.name
+                                                    or "Memcpy" in e.name)}
+    leads = [e.time_range.start - launches[e.id] for e in prof.events()
+             if e.device_type.name == "CUDA" and e.id in launches]
+    return min(leads) if leads else None
+
+
+# The spin that device_ms queues its calls behind, in clock cycles
+# (about 5 ms on an H100): longer than the host takes to queue ten calls.
+QUEUE_SPIN_CYCLES = 10**7
+
+
+def device_ms(fn, reps: int = 10, tries: int = 4) -> float:
+    """Device milliseconds per call of fn(): CUDA events around ``reps``
+    calls that the host queued while the card was still running a spin
+    kernel, so that the card runs them back to back without waiting for the
+    host. The host's share of a call (Python, a wrapper's checks and
+    allocations, the launch), which time_ms counts, is left out; the gaps
+    between one call's kernels on the card are counted. Where the spin had
+    ended before the last call was queued (fn() waited for the card, or the
+    host was slow), the spin is made four times longer, up to ``tries``
+    runs, and then it raises. No profiler is involved: torch.profiler lost
+    some of ten calls' device events in whole sessions, again and again."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    cycles = QUEUE_SPIN_CYCLES
     for _ in range(tries):
-        events = device_events(fn, reps)
-        counts = collections.Counter(e.name for e in events)
-        short = {name[:60]: n for name, n in counts.items() if n % reps}
-        missing = [g for g in must if not any(g in name for name in counts)]
-        if not short and not missing:
-            return sum(e.time_range.end - e.time_range.start for e in events) / reps / 1e3
-        print(f"  (the profiler lost device events of {reps} calls: {short or missing}; "
-              "profiling again)")
-    raise RuntimeError(f"device_ms: the profiler lost device events in {tries} runs")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        print(f"  (device_ms: the card had finished a spin of {cycles} cycles before the host "
+              f"queued {reps} calls; again with a longer spin)")
+        cycles *= 4
+    raise RuntimeError(f"device_ms: the card caught up with the host in {tries} runs")
 
 
 def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -278,7 +345,7 @@ class Checker:
         """The wrapper run() and the plain version plain(), each by time_ms
         (the kernels JSON line's ms and plain_ms), and run() by device_ms."""
         self.times[kernel] = (time_ms(run), time_ms(plain))
-        self.device[kernel] = device_ms(run, kernel=kernel)
+        self.device[kernel] = device_ms(run)
 
 
 def median_depth_check(chk, case, got, want, weights, threshold, atol):
@@ -314,7 +381,8 @@ def median_depth_ties(model, model_cpu, cams, grid, grid_cpu, depth_gpu, depth_c
     for s in range(0, H * W, chunk):
         idx = torch.from_numpy(ray_index[s:s + chunk])
         w_cpu = model_cpu(generate_rays(cams, idx), prop_grid=grid_cpu)["weights_list"][-1]
-        w_gpu = model(generate_rays(cams.to(grid.device), idx.to(grid.device)),
+        dev = next(model.parameters()).device
+        w_gpu = model(generate_rays(cams.to(dev), idx.to(dev)),
                       prop_grid=grid)["weights_list"][-1].cpu()
         cum_cpu, cum_gpu = torch.cumsum(w_cpu, -1), torch.cumsum(w_gpu, -1)
         straddle = (cum_cpu < 0.5) != (cum_gpu < 0.5)
@@ -411,6 +479,29 @@ def k1_bound(pos, hcfg, eids):
                  n * hcfg.num_levels * (hcfg.features_per_level * 16 + 30))
 
 
+def k1b_bound(pos, g, keys, rows):
+    """K1b's bound: positions, expert ids and the upstream gradient read,
+    keys and rows written; two operations a row element."""
+    return bound(pos.shape[0] * 16 + g.numel() * 4 + keys.numel() * 4 + rows.numel() * 4,
+                 rows.numel() * 2)
+
+
+def check_k1b(chk, case, pos, hcfg, eids, g):
+    """K1b against its plain version: keys exact, rows within atol 1e-9 +
+    rtol 1e-6. Returns K1b's (keys, rows)."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+
+    keys, rows = HE.hash_encode_bwd(pos, hcfg, eids, g)
+    pkeys, prows = HE.hash_encode_bwd_plain(pos, hcfg, eids, g)
+    bad = int((keys != pkeys).sum())
+    print(f"  hash_encode_bwd {case}: keys differ on {bad} of {keys.numel()} (largest key "
+          f"{int(keys.max())}) -> {'ok' if bad == 0 else 'FAIL'}")
+    if bad:
+        chk.failures.append(f"hash_encode_bwd {case}: {bad} keys differ")
+    chk.close("hash_encode_bwd", f"{case} rows", rows, prows, 1e-9, 1e-6)
+    return keys, rows
+
+
 def k3_bound(deltas, dens, steps, payload, index):
     """K3's bound: per sample delta, sigma, t, the payload index and the
     weight written, and its payload row read; per ray its outputs."""
@@ -466,11 +557,41 @@ def k4_reading(chk, label, kargs, small_grid: bool = True):
         b = k4_bound(*args)
         print(f"  prop_grid_density_fwd reading {label} {grid_label}: kernel "
               f"{time_ms(lambda: PF.prop_grid_density(*args)):.4f} ms (device "
-              f"{device_ms(lambda: PF.prop_grid_density(*args), kernel='prop_grid_density_fwd'):.4f}"
+              f"{device_ms(lambda: PF.prop_grid_density(*args)):.4f}"
               f" ms), bound {b[0]:.4f} ms ({b[1]})")
 
 
 @contextlib.contextmanager
+def recording_calls(specs):
+    """specs: {label: (module, function name, keep, index)}. While active,
+    keep a copy of the arguments of the index-th call of module.function
+    for which keep(*args) is true, under its label: tensors cloned, except
+    parameters (the tables), which are kept with lists and the rest as they
+    are. The wrappers' call sites pass their arguments by position."""
+    recorded, seen, patched = {}, collections.Counter(), []
+
+    def wrap(label, fn, keep, index):
+        def call(*args, **kwargs):
+            if keep(*args):
+                if seen[label] == index:
+                    recorded[label] = tuple(
+                        a.clone() if isinstance(a, torch.Tensor)
+                        and not isinstance(a, torch.nn.Parameter) else a for a in args)
+                seen[label] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for label, (module, name, keep, index) in specs.items():
+        real = getattr(module, name)
+        patched.append((module, name, real))
+        setattr(module, name, wrap(label, real, keep, index))
+    try:
+        yield recorded
+    finally:
+        for module, name, real in reversed(patched):
+            setattr(module, name, real)
+
+
 def recording_render_chunk(field_hash, chunk: int = 5):
     """Keep a copy of the inputs of K1 on the main field, of K3 with a
     payload (the final render) and of K4 (the first proposal round) in the
@@ -481,36 +602,12 @@ def recording_render_chunk(field_hash, chunk: int = 5):
     from presight_tpu_torch.ops import hash_encoding as HE
     from presight_tpu_torch.ops import renderers as VR
 
-    real_k1, real_k3, real_k4 = HE.hash_encode_fwd, VR.volume_render_fwd, NM.prop_grid_density
-    recorded, seen = {}, {"k1": 0, "k3": 0, "k4": 0}
-
-    def k1(table, positions, config, expert_ids=None, **kw):
-        if config == field_hash:
-            if seen["k1"] == chunk:
-                recorded["k1"] = (table, positions.clone(), config,
-                                  None if expert_ids is None else expert_ids.clone())
-            seen["k1"] += 1
-        return real_k1(table, positions, config, expert_ids, **kw)
-
-    def k3(deltas, density, steps=None, payload=None, payload_index=None, *a, **kw):
-        if payload is not None:
-            if seen["k3"] == chunk:
-                recorded["k3"] = tuple(t.clone() for t in (deltas, density, steps, payload,
-                                                            payload_index))
-            seen["k3"] += 1
-        return real_k3(deltas, density, steps, payload, payload_index, *a, **kw)
-
-    def k4(grid, centroids, aabbs, positions, res):
-        if seen["k4"] == chunk:
-            recorded["k4"] = (grid, centroids, aabbs, positions.reshape(-1, 3).clone(), res)
-        seen["k4"] += 1
-        return real_k4(grid, centroids, aabbs, positions, res)
-
-    HE.hash_encode_fwd, VR.volume_render_fwd, NM.prop_grid_density = k1, k3, k4
-    try:
-        yield recorded
-    finally:
-        HE.hash_encode_fwd, VR.volume_render_fwd, NM.prop_grid_density = real_k1, real_k3, real_k4
+    return recording_calls({
+        "k1": (HE, "hash_encode_fwd", lambda table, pos, cfg, *a: cfg == field_hash, chunk),
+        "k3": (VR, "volume_render_fwd", lambda d, s, t=None, payload=None, *a: payload is not None,
+               chunk),
+        "k4": (NM, "prop_grid_density", lambda *a: True, chunk),
+    })
 
 
 @torch.no_grad()
@@ -532,17 +629,18 @@ def check_render_chunk(recorded, chk: Checker):
     b = k1_bound(*args[1:])
     print(f"  render chunk hash_encode_fwd N={n}: kernel "
           f"{time_ms(lambda: HE.hash_encode(*args)):.4f} ms (device "
-          f"{device_ms(lambda: HE.hash_encode(*args), kernel='hash_encode_fwd'):.4f} ms), bound "
+          f"{device_ms(lambda: HE.hash_encode(*args)):.4f} ms), bound "
           f"{b[0]:.4f} ms ({b[1]})")
-    vargs = recorded["k3"]
+    vargs = recorded["k3"][:5]
     R, S = vargs[0].shape
     check_k3(chk, f"render chunk R={R} S={S}", vargs)
     b = k3_bound(*vargs)
     print(f"  render chunk volume_render_fwd R={R} S={S} C={vargs[3].shape[1]}: kernel "
           f"{time_ms(lambda: VR.volume_render(*vargs)):.4f} ms (device "
-          f"{device_ms(lambda: VR.volume_render(*vargs), kernel='volume_render_fwd'):.4f} ms), "
+          f"{device_ms(lambda: VR.volume_render(*vargs)):.4f} ms), "
           f"bound {b[0]:.4f} ms ({b[1]})")
-    k4_reading(chk, "render chunk", recorded["k4"])
+    grid, cent, aabbs, pos, res = recorded["k4"]
+    k4_reading(chk, "render chunk", (grid, cent, aabbs, pos.reshape(-1, 3), res))
     return chk.failures[failures:]
 
 
@@ -588,7 +686,7 @@ def check_kernels(model, grid, chk: Checker):
           f"{small.features_per_level}F x 2^14 rows "
           f"({small.table_size * small.row_features * 4 / 1e6:.1f} MB a level): kernel "
           f"{time_ms(lambda: HE.hash_encode(*l2args)):.4f} ms (device "
-          f"{device_ms(lambda: HE.hash_encode(*l2args), kernel='hash_encode_fwd'):.4f} ms)")
+          f"{device_ms(lambda: HE.hash_encode(*l2args)):.4f} ms)")
     del l2args
     n_prop = n_rays * cfg.num_proposal_samples_per_ray[1]
     pargs = (params["props"][0]["hash_table"], torch.rand((n_prop, 3), generator=gen, device=dev),
@@ -696,8 +794,56 @@ def check_kernels(model, grid, chk: Checker):
     check_k3(chk, f"long rays R={long[0].shape[0]} S={long[0].shape[1]}", long)
     print(f"  volume_render_fwd long rays R={long[0].shape[0]} S={long[0].shape[1]}: kernel "
           f"{time_ms(lambda: VR.volume_render(*long)):.4f} ms (device "
-          f"{device_ms(lambda: VR.volume_render(*long), kernel='volume_render_fwd'):.4f} ms), "
+          f"{device_ms(lambda: VR.volume_render(*long)):.4f} ms), "
           f"bound {k3_bound(*long)[0]:.4f} ms")
+
+
+@torch.no_grad()
+def check_deploy_capacity(model, chk: Checker):
+    """Phase 3: K1, K1b and K5 with 'shared' tables of 2^19 rows a level
+    (bench.py's cap-log2-19 rung: the -tpu main field at deploy capacity),
+    against their plain versions, K5 also against index_add_; K1 at a render
+    chunk's padded slots, K1b and K5 at a 1,024-ray microbatch's. Random
+    tables and positions, from their own generator."""
+    from presight_tpu_torch.fields.router import build_padded_routing
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops.mlp import GROUP_BLOCK
+
+    cfg = model.config
+    cap = dataclasses.replace(cfg.field.hash, log2_hashmap_size=19)
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    E = model.params()["field"]["centroids"].shape[0]
+    tables = [torch.rand((cap.table_size, cap.row_features), generator=gen, device=dev) * 2 - 1
+              for _ in range(cap.num_levels)]
+    label = f"shared {cap.num_levels}x{cap.features_per_level} 2^19"
+
+    def slots(rays):
+        routing = build_padded_routing(
+            torch.randint(0, E, (rays * cfg.num_nerf_samples_per_ray,), generator=gen,
+                          device=dev, dtype=torch.int32), E, GROUP_BLOCK)
+        return (torch.rand((routing.to_slot.shape[0], 3), generator=gen, device=dev),
+                routing.expert_of_slot)
+
+    pos, eids = slots(cfg.eval_num_rays_per_chunk)
+    args = (tables, pos, cap, eids)
+    chk.close("hash_encode_fwd", f"{label} N={pos.shape[0]}", HE.hash_encode(*args),
+              HE.hash_encode_plain(*args), 1e-7, 1e-5)
+    time_line(f"hash_encode_fwd {label} N={pos.shape[0]}", lambda: HE.hash_encode(*args),
+              lambda: HE.hash_encode_plain(*args), k1_bound(pos, cap, eids))
+
+    pos, eids = slots(1024)
+    n = pos.shape[0]
+    g = torch.randn((n, cap.out_dim), generator=gen, device=dev) * 1e-3
+    keys, rows = check_k1b(chk, f"{label} N={n}", pos, cap, eids, g)
+    time_line(f"hash_encode_bwd {label} N={n}", lambda: HE.hash_encode_bwd(pos, cap, eids, g),
+              lambda: HE.hash_encode_bwd_plain(pos, cap, eids, g),
+              k1b_bound(pos, g, keys, rows))
+    skeys, order = torch.sort(keys, stable=True)
+    prior = prior_gradient(skeys, order, rows, cap.num_levels * cap.table_size)
+    check_sorted_accum(chk, f"{label} N={keys.numel()} C={rows.shape[1]}", skeys, order, rows,
+                       prior, cap.table_size)
+    time_sorted_accum(skeys, order, rows, prior, cap.table_size, f" {label}")
 
 
 def long_rays(gen, S, C, R: int = 256):
@@ -764,14 +910,7 @@ def check_backward_kernels(model, chk: Checker):
     for name, hcfg, n, eids in cases:
         pos = torch.rand((n, 3), generator=gen, device=dev)
         g = torch.randn((n, hcfg.out_dim), generator=gen, device=dev) * 1e-3
-        keys, rows = HE.hash_encode_bwd(pos, hcfg, eids, g)
-        pkeys, prows = HE.hash_encode_bwd_plain(pos, hcfg, eids, g)
-        bad_keys = int((keys != pkeys).sum())
-        print(f"  hash_encode_bwd {name} N={n}: keys differ on {bad_keys} -> "
-              f"{'ok' if bad_keys == 0 else 'FAIL'}")
-        if bad_keys:
-            chk.failures.append(f"hash_encode_bwd {name}: {bad_keys} keys differ")
-        chk.close("hash_encode_bwd", f"{name} rows", rows, prows, 1e-9, 1e-6)
+        keys, rows = check_k1b(chk, f"{name} N={n}", pos, hcfg, eids, g)
         if hcfg.storage != "shared":
             continue
         skeys, order = torch.sort(keys, stable=True)
@@ -782,8 +921,7 @@ def check_backward_kernels(model, chk: Checker):
         if name.startswith("main"):
             chk.time("hash_encode_bwd", lambda: HE.hash_encode_bwd(pos, hcfg, eids, g),
                      lambda: HE.hash_encode_bwd_plain(pos, hcfg, eids, g))
-            chk.bounds["hash_encode_bwd"] = bound(n * 16 + g.numel() * 4 + keys.numel() * 4
-                                                  + rows.numel() * 4, rows.numel() * 2)
+            chk.bounds["hash_encode_bwd"] = k1b_bound(pos, g, keys, rows)
             time_sorted_accum(skeys, order, rows, prior, hcfg.table_size, " on random keys")
 
     # K2b: the six MLP stacks of the training path, against the plain
@@ -891,7 +1029,7 @@ def check_k3b_long_rays(chk, args):
     clip = VR.step_bounds(args[2])
     print(f"  volume_render_bwd long rays R={R} S={S}: kernel "
           f"{time_ms(lambda: VR.volume_render_bwd(*vargs, clip)):.4f} ms (device "
-          f"{device_ms(lambda: VR.volume_render_bwd(*vargs, clip), kernel='volume_render_bwd'):.4f}"
+          f"{device_ms(lambda: VR.volume_render_bwd(*vargs, clip)):.4f}"
           " ms)")
 
 
@@ -925,20 +1063,22 @@ def synthetic_dataset(cams, num_features: int):
 
 @contextlib.contextmanager
 def recording_sorted_accum():
-    """Keep a copy of the inputs of the last K5 launch on the main field's
-    table gradient (the largest of a microbatch): the keys of a training
-    microbatch cluster (a ray's samples share coarse cells), so K5's run
-    lengths, and its time, differ from those of random keys."""
+    """Keep a copy of the inputs of the largest K5 launch of each row width
+    C (the main field's table gradient, and a proposal field's where its C
+    differs): the keys of a training microbatch cluster (a ray's samples
+    share coarse cells), so K5's run lengths, and its time, differ from
+    those of random keys."""
     from presight_tpu_torch.ops import hash_encoding as HE
 
     real = HE.sorted_accum
     recorded = {}
 
     def record(keys, rows, out, order):
-        if not recorded or rows.numel() >= recorded["rows"].numel():
+        C = rows.shape[1]
+        if C not in recorded or rows.numel() >= recorded[C]["rows"].numel():
             parts = out if isinstance(out, (list, tuple)) else [out]
-            recorded.update(keys=keys.clone(), order=order.clone(), rows=rows.clone(),
-                            parts=len(parts), part_rows=parts[0].shape[0])
+            recorded[C] = dict(keys=keys.clone(), order=order.clone(), rows=rows.clone(),
+                               parts=len(parts), part_rows=parts[0].shape[0])
         return real(keys, rows, out, order)
 
     HE.sorted_accum = record
@@ -946,6 +1086,18 @@ def recording_sorted_accum():
         yield recorded
     finally:
         HE.sorted_accum = real
+
+
+def check_recorded_sorted_accum(chk: Checker, rec, label):
+    """K5 on recorded training pairs against its plain version and one
+    index_add_ call, timed (time_sorted_accum). Returns time_sorted_accum's
+    numbers."""
+    keys, order, rows = rec["keys"], rec["order"], rec["rows"]
+    prior = prior_gradient(keys, order, rows, rec["parts"] * rec["part_rows"])
+    check_sorted_accum(chk, f"{label} N={keys.numel()} C={rows.shape[1]} "
+                       f"T={rec['parts']}x{rec['part_rows']}", keys, order, rows, prior,
+                       rec["part_rows"])
+    return time_sorted_accum(keys, order, rows, prior, rec["part_rows"], f" on {label}")
 
 
 def prior_gradient(keys, order, rows, num_rows):
@@ -1006,7 +1158,7 @@ def time_sorted_accum(keys, order, rows, prior, part_rows, label):
     k_ms, p_ms = time_ms(kernel), time_ms(lambda: HE.sorted_accum_plain(keys, rows, plain_parts,
                                                                         order))
     lib_ms, lib_dev = time_ms(library), device_ms(library)
-    k_dev = device_ms(kernel, kernel="sorted_accum")
+    k_dev = device_ms(kernel)
     runs = torch.unique_consecutive(keys, return_counts=True)[1]
     n, C = rows.shape
     b = bound(n * 4 + n * 8 + n * C * 4 + 2 * runs.numel() * C * 4, n * C)
@@ -1018,21 +1170,14 @@ def time_sorted_accum(keys, order, rows, prior, part_rows, label):
         k, o = torch.sort(unsorted, stable=True)
         HE.sorted_accum(k, rows, parts, o)
 
-    reps = 10
-    by_kernel = {name: 0.0 for name in KERNEL_GLOBALS["sorted_accum"]}
-    for e in device_events(kernel, reps):
-        for name in by_kernel:
-            if name in e.name:
-                by_kernel[name] += (e.time_range.end - e.time_range.start) / reps / 1e3
     chain_ms = time_ms(chain)
     lib_unsorted_ms = time_ms(lambda: lib_out.index_add_(0, unsorted64, rows))
     print(f"  sorted_accum{label}: {runs.numel()} runs of {n} rows of {C}, longest "
-          f"{int(runs.max())}; kernel {k_ms:.4f} ms (device {k_dev:.4f} ms), plain {p_ms:.4f} "
-          f"ms, index_add_ (sorted rows) {lib_ms:.4f} ms (device {lib_dev:.4f} ms), bound "
-          f"{b[0]:.4f} ms ({b[0] / k_ms:.3f} of the kernel's ms, {b[0] / k_dev:.3f} of its "
+          f"{int(runs.max())}; kernel {k_ms:.4f} ms (device {k_dev:.4f} ms), plain "
+          f"{p_ms:.4f} ms, index_add_ (sorted rows) {lib_ms:.4f} ms (device {lib_dev:.4f} ms), "
+          f"bound {b[0]:.4f} ms ({b[0] / k_ms:.3f} of the kernel's ms, {b[0] / k_dev:.3f} of its "
           f"device ms); torch.sort + kernel {chain_ms:.4f} ms vs index_add_ on the unsorted "
-          f"pairs {lib_unsorted_ms:.4f} ms; by kernel (device): "
-          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in by_kernel.items()))
+          f"pairs {lib_unsorted_ms:.4f} ms")
     return k_ms, p_ms, k_dev, lib_ms, b
 
 
@@ -1049,29 +1194,30 @@ def hash_tables(tree):
             yield from hash_tables(value)
 
 
-def train_phase(aabbs, cent, cams, chk: Checker):
-    """Phase 7. Returns (trainer, launches on the training path, {kernel:
-    (device ms, launches) of the profiled step}, problems)."""
+def train_phase(config, aabbs, cent, cams, expected, record_specs=None):
+    """Phases 7 and 11: TRAIN_STEPS steps of the Trainer on the synthetic
+    set. Fails unless every kernel of ``expected`` was launched on the
+    training path and no other. Returns (trainer, launches on the training
+    path, the recorded K5 inputs by row width, the calls recorded by
+    ``record_specs`` (recording_calls), problems)."""
     from presight_tpu_torch import kernels
-    from presight_tpu_torch.configs import tile_trainer_config
     from presight_tpu_torch.data.device_store import DeviceRayStore
     from presight_tpu_torch.engine.trainer import Trainer
 
-    config = tile_trainer_config("boston-seaport", 0, "camera")
     rgb, sky, depth, feats, train_cams = synthetic_dataset(cams, config.pipeline.model.semantic_dim)
     t0 = time.perf_counter()
     store = DeviceRayStore(rgb, sky, depth, feats)
     trainer = Trainer(config, store, train_cams, aabbs, cent, num_train_cameras=len(rgb),
                       num_train_videos=1)
     torch.cuda.synchronize()
+    rays = config.pipeline.datamanager.train_num_rays_per_batch
     print(f"  set-up: {len(store)} rays on the card, model and Adam state in "
-          f"{time.perf_counter() - t0:.2f} s; {config.pipeline.datamanager.train_num_rays_per_batch}"
-          f" rays per step in microbatches of {config.microbatch_rays}")
+          f"{time.perf_counter() - t0:.2f} s; {rays} rays per step in microbatches of "
+          f"{config.microbatch_rays}")
     problems = []
     log = []
 
     def report(step, m):
-        rays = config.pipeline.datamanager.train_num_rays_per_batch
         losses = {k: v for k, v in m.items() if k.endswith("loss")}
         print(f"  step {step}: {m['step_seconds']:.3f} s, {rays / m['step_seconds']:.1f} rays/s, "
               f"grid refreshed={bool(m['grid_refreshed'])}, psnr={m['psnr']:.3f}, "
@@ -1081,7 +1227,7 @@ def train_phase(aabbs, cent, cams, chk: Checker):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with recording_sorted_accum() as recorded:
+    with recording_sorted_accum() as recorded, recording_calls(record_specs or {}) as calls:
         trainer.train(num_steps=TRAIN_STEPS, callback=report)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
@@ -1089,8 +1235,7 @@ def train_phase(aabbs, cent, cams, chk: Checker):
     print(f"  launches on the training path: {launches}")
     steady = [m["step_seconds"] for m in log[1:]]
     print(f"  steady step (steps 1-{TRAIN_STEPS - 1}): median {statistics.median(steady):.4f} s, "
-          f"{config.pipeline.datamanager.train_num_rays_per_batch / statistics.median(steady):.1f}"
-          " rays/s")
+          f"{rays / statistics.median(steady):.1f} rays/s")
     for m in log:
         bad = [k for k, v in m.items() if not np.isfinite(v)]
         if bad:
@@ -1099,40 +1244,38 @@ def train_phase(aabbs, cent, cams, chk: Checker):
         if not bool(torch.isfinite(p).all()):
             problems.append(f"parameter {name} not finite")
     for name in KERNEL_INFO:
-        if launches[name] <= 0:
-            problems.append(f"{name} was not launched on the training path")
+        if (launches[name] > 0) != (name in expected):
+            problems.append(f"{name} was launched {launches[name]} times on the training path")
     if not recorded:
         problems.append("no K5 launch on a training microbatch was recorded")
-        return trainer, launches, {}, problems
-    keys, order, rows = recorded["keys"], recorded["order"], recorded["rows"]
-    prior = prior_gradient(keys, order, rows, recorded["parts"] * recorded["part_rows"])
-    check_sorted_accum(chk, f"training keys N={keys.numel()} C={rows.shape[1]} "
-                       f"T={recorded['parts']}x{recorded['part_rows']}", keys, order, rows,
-                       prior, recorded["part_rows"])
-    k_ms, p_ms, k_dev, chk.library["sorted_accum"], chk.bounds["sorted_accum"] = (
-        time_sorted_accum(keys, order, rows, prior, recorded["part_rows"], " on training keys"))
-    chk.times["sorted_accum"], chk.device["sorted_accum"] = (k_ms, p_ms), k_dev
-    problems += chk.failures
+    return trainer, launches, recorded, calls, problems
+
+
+def profile_step(trainer, label, out_name):
+    """One more training step under torch.profiler (``label``; the table
+    goes to OUT_DIR/out_name), with a check that AccumulateGrad never ran on
+    a hash table. Returns ({kernel: (device ms, launches) of the
+    step}, problems)."""
+    from presight_tpu_torch import kernels
+
     # The tables' gradients come from K5 adding into .grad: their
     # AccumulateGrad nodes must never run.
     fired = []
     hooks = [t.register_post_accumulate_grad_hook(lambda t: fired.append(t))
              for t in hash_tables(trainer.model.params())]
-    step_profile = profile_device("profiled step", lambda: trainer.train(num_steps=1),
-                                  "train_profile.txt")
+    step_profile = profile_device(f"profiled {label}", lambda: trainer.train(num_steps=1),
+                                  out_name)
     step_launches = dict(kernels.LAUNCHES)
     for h in hooks:
         h.remove()
-    print(f"  profiled step: AccumulateGrad ran {len(fired)} times on the {len(hooks)} hash "
+    print(f"  profiled {label}: AccumulateGrad ran {len(fired)} times on the {len(hooks)} hash "
           f"tables -> {'ok' if not fired else 'FAIL'}")
-    if fired:
-        problems.append(f"AccumulateGrad ran {len(fired)} times on the hash tables")
-    step = {name: (step_profile[name][0], step_launches[name]) for name in KERNEL_INFO}
-    return trainer, launches, step, problems
+    problems = [f"AccumulateGrad ran {len(fired)} times on the hash tables"] if fired else []
+    return {name: (step_profile[name][0], step_launches[name]) for name in KERNEL_INFO}, problems
 
 
 def profile_device(label, fn, out_name, tries: int = 5):
-    """fn() under torch.profiler, between spin kernels as in device_events:
+    """fn() in a padded_profile session:
     the device's busy time and idle share of the traced wall time; the
     device time and kernel launches of each kernel of KERNEL_INFO (by its
     __global__ names, KERNEL_GLOBALS) and of memsets; the device time of the
@@ -1143,25 +1286,17 @@ def profile_device(label, fn, out_name, tries: int = 5):
     fn() runs and is profiled again, up to ``tries`` runs in all, and then
     it raises. Returns {kernel: (device ms, kernel launches)}; LAUNCHES
     holds the wrapper counts of the last run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from presight_tpu_torch import kernels
 
     for _ in range(tries):
         torch.cuda.synchronize()
         kernels.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+        with padded_profile() as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            for _ in range(4):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA" and SPIN not in e.name]
+        events = device_of(prof)
         mains = {name: sum(KERNEL_GLOBALS[name][0] in e.name for e in events)
                  for name in KERNEL_INFO}
         lost = {name: (n, kernels.LAUNCHES[name]) for name, n in mains.items()
@@ -1169,7 +1304,7 @@ def profile_device(label, fn, out_name, tries: int = 5):
         if not lost:
             break
         print(f"  {label}: the profiler lost device events (kernel: (profiled, launched)) "
-              f"{lost}; profiling again")
+              f"{lost}; least launch-to-start lead {launch_lead_us(prof)} us; profiling again")
     else:
         raise RuntimeError(f"profile_device {label}: the profiler lost device events in "
                            f"{tries} runs")
@@ -1180,7 +1315,8 @@ def profile_device(label, fn, out_name, tries: int = 5):
             busy += b - max(a, end)
             end = b
     print(f"  {label}: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
-          f"idle share {1.0 - busy / 1e6 / wall:.3f}")
+          f"idle share {1.0 - busy / 1e6 / wall:.3f}; least launch-to-start lead "
+          f"{launch_lead_us(prof)} us")
     by_kernel = {name: [0.0, 0] for name in [*KERNEL_INFO, "memset"]}
     for e in events:
         name = next((k for k, names in KERNEL_GLOBALS.items() if any(g in e.name for g in names)),
@@ -1257,10 +1393,10 @@ def replaying_samples(mode: str, recorded: list):
         TS.generate_rays, NM.proposal_sample = real_rays, real_sample
 
 
-def path_vs_plain_phase(trainer):
-    """Phase 8: one step of 2048 rays (2 microbatches of 1024) on the same
-    weights, batch and draws through the kernels (card) and the plain
-    versions (CPU). The CPU path replays the card's ray bundles and sample
+def path_vs_plain_phase(trainer, rays: int, micro: int):
+    """Phases 8 and 12: one step of ``rays`` rays (microbatches of
+    ``micro``) on the same weights, batch and draws through the kernels
+    (card) and the plain versions (CPU). The CPU path replays the card's ray bundles and sample
     bins: otherwise the PDF resampled from K3's weights (summed in another
     order) moves samples by rounding, and a sample within rounding of a
     hash-cell face reads the neighbouring cell (the first full run of this
@@ -1293,10 +1429,11 @@ def path_vs_plain_phase(trainer):
     grid = trainer.model.make_prop_grid()
     rng = np.random.RandomState(SEED + 2)
     ground = np.flatnonzero(trainer.store.sky.cpu().numpy() == 0.0)
-    rows = rng.choice(ground, 2048, replace=False)
+    rows = rng.choice(ground, rays, replace=False)
     batch = trainer.store.batch(trainer.store.ray_index(rows), with_features=True)
-    draws = [[torch.from_numpy(rng.rand(1024, 1).astype(np.float32)) for _ in range(3)]
-             for _ in range(2)]
+    rounds = len(mcfg.num_proposal_samples_per_ray) + 1
+    draws = [[torch.from_numpy(rng.rand(micro, 1).astype(np.float32)) for _ in range(rounds)]
+             for _ in range(rays // micro)]
     results, recorded = {}, []
     for device, mode in (("cuda", "record"), ("cpu", "replay")):
         model = NerfactoNuscMS(mcfg, bridge.from_jax_params(tree)).to(device)
@@ -1306,7 +1443,8 @@ def path_vs_plain_phase(trainer):
             metrics = train_step(model, opts, trainer.cameras.to(device),
                                  {k: v.to(device) for k, v in batch.items()},
                                  StepScalars(0.5, 5.0, 0.0), stop_prop_grad=False,
-                                 microbatch_rays=1024, prop_grid=grid.to(device),
+                                 microbatch_rays=micro,
+                                 prop_grid=None if grid is None else grid.to(device),
                                  draws=[[u.to(device) for u in d] for d in draws])
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1348,7 +1486,448 @@ def path_vs_plain_phase(trainer):
     return problems
 
 
+# The executed reference golden and its generator's config
+# (tests/test_full_model_parity.py; tests/test_torch_reference_model.py).
+REFERENCE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd", "hash_encode_bwd",
+                     "mlp_blocks_bwd", "volume_render_bwd", "sorted_accum")
+
+
+@torch.no_grad()
+def golden_phase():
+    """Phase 9: the executed reference golden imported onto the card by the
+    port's importer; the eval forward through the kernels under the golden
+    test's quantile checks, and the field queries at its rtol and atol (the
+    card tests' helpers, tests/test_torch_cuda.py, hold both). Returns
+    (launches of the forward, problems)."""
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.engine.import_reference import import_reference_state_dict
+    from presight_tpu_torch.models.nerfacto_ms import NerfactoNuscMS
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import (golden_bundle, golden_forward_report, golden_query_report,
+                                 load_golden)
+
+    state, io, cfg = load_golden()
+    model = NerfactoNuscMS(cfg, import_reference_state_dict(state, cfg))
+    bundle = golden_bundle(io, "cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = model(bundle, train=False, stop_prop_grad=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  {len(io['origins'])} rays, {cfg.prop(0).hash.num_levels}-level proposal fields with "
+          f"per-expert {cfg.prop(0).hash.out_dim}-64-1 MLPs, 'corner' tables; launches of the "
+          f"forward: {launches}")
+    out = {k: v.cpu().numpy() for k, v in out.items() if isinstance(v, torch.Tensor)}
+    report = golden_forward_report(out, io, cfg.far_plane) + golden_query_report(model, io)
+    for line, ok in report:
+        print(f"  {line} -> {'ok' if ok else 'FAIL'}")
+    problems = [line for line, ok in report if not ok]
+    for name in ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd"):
+        if launches[name] <= 0:
+            problems.append(f"{name} was not launched on the golden's forward")
+    return launches, problems
+
+
+def scene_at_camera_height(num_experts: int):
+    """scene() with every centroid and AABB raised to the cameras' height,
+    so that the rays' samples fall inside the experts' AABBs."""
+    aabbs, cent, cams = scene(num_experts)
+    shift = np.array([0.0, 0.0, float(cams.c2w[0, 2, 3]) - float(cent[0, 2])], np.float32)
+    return aabbs + shift, cent + shift, cams
+
+
+def extraction_inputs(config):
+    """Six 1600x900 cameras' items and a random DINO-to-RGB projection, the
+    inputs of extract_voxels besides the model and cameras."""
+    items = [SimpleNamespace(H=900, W=1600, seg_path=None) for _ in range(6)]
+    dino_rng = np.random.RandomState(SEED)
+    dino_to_rgb = {"reduction_matrix": dino_rng.randn(config.semantic_dim, 3).astype(np.float32),
+                   "mean": np.full(config.semantic_dim, 0.5, np.float32),
+                   "rgb_min": np.full(3, -2.0, np.float32),
+                   "rgb_max": np.full(3, 2.0, np.float32)}
+    return items, dino_to_rgb
+
+
+def serve_problems(img, result, config, H, W):
+    """Finite render outputs of the expected shapes, and the prior pickle's
+    schema with finite values."""
+    problems = []
+    for key, v in img.items():
+        if not np.isfinite(v).all():
+            problems.append(f"render {key} not finite")
+    if img["rgb"].shape != (H, W, 3) or img["semantics"].shape != (H, W, config.semantic_dim):
+        problems.append(f"render shapes {img['rgb'].shape} {img['semantics'].shape}")
+    want = {"points": (np.float32, 3), "features": (np.float16, config.semantic_dim),
+            "colors": (np.float32, 3)}
+    if set(result) != {"points", "features", "colors", "hits", "origin"}:
+        problems.append(f"pickle keys {sorted(result)}")
+    for key, (dtype, width) in want.items():
+        if result[key].dtype != dtype or result[key].shape != (len(result["points"]), width):
+            problems.append(f"pickle {key} {result[key].dtype} {result[key].shape}")
+        if not np.isfinite(result[key].astype(np.float32)).all():
+            problems.append(f"pickle {key} not finite")
+    if len(result["points"]) == 0 or result["origin"].dtype != np.float32:
+        problems.append("pickle empty or origin not float32")
+    return problems
+
+
+def time_line(label, run, plain, b):
+    """One kernel's times on recorded inputs: CUDA events and device time of
+    the wrapper, events of the plain version, beside its bound."""
+    print(f"  {label}: kernel {time_ms(run):.4f} ms (device "
+          f"{device_ms(run):.4f} ms), plain {time_ms(plain):.4f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]})")
+
+
+@torch.no_grad()
+def check_reference_chunk(recorded, chk: Checker):
+    """K1 (round 0's proposal field at F = 1, the main field at F = 4), K2
+    (round 0's grouped proposal MLP) and K3 (round 0's weights at S = 128,
+    the final render with its payload) on the inputs recorded from one
+    render chunk of the reference architecture, against their plain
+    versions, timed beside their bounds. Returns problems."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import mlp as M
+    from presight_tpu_torch.ops import renderers as VR
+
+    labels = ["k1_main", "k1_round0", "k2_round0", "k3_round0", "k3_final"]
+    if sorted(recorded) != sorted(labels):
+        return [f"reference render chunk not recorded (got {sorted(recorded)})"]
+    failures = len(chk.failures)
+    for label in ("k1_round0", "k1_main"):
+        args = recorded[label]
+        hcfg, n = args[2], args[1].shape[0]
+        case = f"reference chunk {label} {hcfg.num_levels}x{hcfg.features_per_level}F N={n}"
+        chk.close("hash_encode_fwd", case, HE.hash_encode(*args), HE.hash_encode_plain(*args),
+                  1e-7, 1e-5)
+        time_line(f"hash_encode_fwd {case}", lambda: HE.hash_encode(*args),
+                  lambda: HE.hash_encode_plain(*args), k1_bound(*args[1:]))
+    layers, h, be, sig = recorded["k2_round0"]
+    layers = [(w.detach(), b.detach()) for w, b in layers]
+    case = (f"reference chunk round-0 proposal {h.shape[1]}-64-1 N={h.shape[0]} "
+            f"E={layers[0][0].shape[0]}")
+    chk.close("mlp_blocks_fwd", case, M.mlp_blocks_fwd(layers, h, be, sig),
+              M.apply_mlp_blocks_plain(layers, h, be, sig), 1e-5, 1e-4)
+    k2_masks(chk, case, layers, h, be, sig)
+    time_line(f"mlp_blocks_fwd {case}", lambda: M.mlp_blocks_fwd(layers, h, be, sig),
+              lambda: M.apply_mlp_blocks_plain(layers, h, be, sig),
+              bound(*mlp_work(layers, h.shape[0], 2), TC_F32_FLOPS_PER_S))
+    d, sg = recorded["k3_round0"][:2]
+    case = f"reference chunk round-0 weights R={d.shape[0]} S={d.shape[1]}"
+    chk.close("volume_render_fwd", case, VR.volume_render(d, sg)["weights"],
+              VR.volume_render_plain(d, sg)["weights"], 1e-5, 1e-5)
+    R, S = d.shape
+    time_line(f"volume_render_fwd {case}", lambda: VR.volume_render(d, sg),
+              lambda: VR.volume_render_plain(d, sg),
+              bound(R * S * 12, R * S * 12))
+    vargs = recorded["k3_final"][:5]
+    R, S = vargs[0].shape
+    case = f"reference chunk final R={R} S={S} C={vargs[3].shape[1]}"
+    check_k3(chk, case, vargs)
+    time_line(f"volume_render_fwd {case}", lambda: VR.volume_render(*vargs),
+              lambda: VR.volume_render_plain(*vargs), k3_bound(*vargs))
+    return chk.failures[failures:]
+
+
+def serve_reference_phase(chk: Checker):
+    """Phase 10: boston-seaport-camera-dino-c0 (the reference architecture)
+    at full width from a seed, in scene_at_camera_height(): render one
+    450x800 camera (recording the inputs of K1, K2 and K3 in its sixth
+    chunk) and extract one 6-camera frame at downscale 5; finite outputs,
+    the pickle schema, K1-K3 launched and K4 not; render again, then under
+    torch.profiler; the kernels on the recorded chunk; a 16 x 32 render
+    against the same model's plain path on the CPU. Returns ({kernel:
+    (device ms, launches) of the profiled render}, launches on the serving
+    path, problems)."""
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs import TILES, tile_model_config
+    from presight_tpu_torch.engine.evaluator import ImageRenderer
+    from presight_tpu_torch.models import nerfacto_ms as NM
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import mlp as M
+    from presight_tpu_torch.ops import renderers as VR
+    from presight_tpu_torch.prior.extraction import extract_voxels
+
+    config = tile_model_config("boston-seaport", 0, "camera", tpu=False)
+    aabbs, cent, cams = scene_at_camera_height(TILES["boston-seaport"][1])
+    t0 = time.perf_counter()
+    model = NM.init_model(torch.Generator().manual_seed(SEED), config, aabbs, cent, NUM_CAMERAS,
+                          NUM_VIDEOS)
+    torch.cuda.synchronize()
+    print(f"  model boston-seaport-camera-dino-c0: {cent.shape[0]} experts, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, init "
+          f"{time.perf_counter() - t0:.2f} s; centroids at z = {float(cent[0, 2]):g}")
+    renderer = ImageRenderer(config)
+    H, W = RENDER_HW
+    render_cams = cams.to("cuda")
+    render_cams.fx, render_cams.fy = render_cams.fx * 0.5, render_cams.fy * 0.5
+    render_cams.cx, render_cams.cy = render_cams.cx * 0.5, render_cams.cy * 0.5
+    items, dino_to_rgb = extraction_inputs(config)
+    chunk, prop_in = 5, config.prop(0).hash.out_dim
+    specs = {
+        "k1_main": (HE, "hash_encode_fwd", lambda t, p, c, *a: c == config.field.hash, chunk),
+        "k1_round0": (HE, "hash_encode_fwd", lambda t, p, c, *a: c == config.prop(0).hash, chunk),
+        # rounds 0 and 1 alternate: the (2 chunk)-th is round 0 of the chunk
+        "k2_round0": (M, "mlp_blocks_fwd", lambda layers, h, be, *a: (
+            be is not None and h.shape[1] == prop_in and layers[-1][0].shape[-1] == 1), 2 * chunk),
+        "k3_round0": (VR, "volume_render_fwd", lambda d, s, t=None, payload=None, *a: (
+            payload is None and d.shape[1] == config.num_proposal_samples_per_ray[0]), chunk),
+        "k3_final": (VR, "volume_render_fwd", lambda d, s, t=None, payload=None, *a: (
+            payload is not None), chunk),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recording_calls(specs) as recorded:
+        img = renderer.render(model, render_cams, 0, H, W)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = extract_voxels(
+        model, items, cams.to("cuda"), pose_scale_factor=config.pose_scale_factor,
+        origin=np.zeros(3, np.float32), dino_to_rgb=dino_to_rgb, output_dir=OUT_DIR / "reference",
+        camera_scaling_factor=0.2, min_depth=0.0, max_depth=1e9, density_threshold=1e-6,
+        z_bounds=(-1e9, 1e9), use_segmentation_mask=False)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_rays = H * W
+    print(f"  render {H}x{W}: {n_rays} rays in {t_render:.3f} s ({n_rays / t_render:.1f} rays/s; "
+          f"{-(-n_rays // renderer.chunk)} chunks of {renderer.chunk})")
+    print(f"  extraction: 6 cameras at downscale 5 in {t_extract:.3f} s, "
+          f"{len(result['points'])} voxels")
+    print(f"  launches on the reference serving path: {launches}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    problems = serve_problems(img, result, config, H, W)
+    for name in SERVE_KERNELS:
+        if (launches[name] > 0) != (name != "prop_grid_density_fwd"):
+            problems.append(f"{name} was launched {launches[name]} times on the serving path")
+    if problems:
+        return {}, launches, problems
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.render(model, render_cams, 0, H, W)
+    torch.cuda.synchronize()
+    t_render2 = time.perf_counter() - t0
+    print(f"  render again: {t_render2:.3f} s ({n_rays / t_render2:.1f} rays/s)")
+    profile = profile_device("profiled reference render",
+                             lambda: renderer.render(model, render_cams, 0, H, W),
+                             "render_reference_profile.txt")
+    render = {name: (profile[name][0], kernels.LAUNCHES[name]) for name in KERNEL_INFO}
+    problems = check_reference_chunk(recorded, chk)
+    del recorded
+    # The kernel path against the plain path: a 16 x 32 render of camera 0
+    # at the same field of view, the same weights on the CPU.
+    t0 = time.perf_counter()
+    model_cpu = NM.init_model(torch.Generator().manual_seed(SEED), config, aabbs, cent,
+                              NUM_CAMERAS, NUM_VIDEOS, device="cpu")
+    small = ImageRenderer(config, chunk=256)
+    small_cams = cams.to("cpu")
+    scale = 16 / 900
+    small_cams.fx, small_cams.fy = small_cams.fx * scale, small_cams.fy * scale
+    small_cams.cx, small_cams.cy = small_cams.cx * scale, small_cams.cy * scale
+    out_gpu = small.render(model, small_cams.to("cuda"), 0, 16, 32)
+    out_cpu = small.render(model_cpu, small_cams, 0, 16, 32)
+    print(f"  small render on the CPU (plain path) in {time.perf_counter() - t0:.2f} s, "
+          "model init included")
+    for key in ("rgb", "accumulation", "expected_depth", "semantics"):
+        err = float(np.abs(out_gpu[key] - out_cpu[key]).max())
+        ok = err <= 1e-4
+        print(f"  {key}: max_abs_err={err:.3e} (tol 1e-4) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"small render {key} differs by {err}")
+    problems += median_depth_ties(model, model_cpu, small_cams, None, None, out_gpu["depth"],
+                                  out_cpu["depth"], small.chunk)
+    return render, launches, problems
+
+
+U32 = 2.0 ** -24  # f32's unit roundoff
+
+
+def k3b_density_bound(deltas, density, steps, payload, payload_index, weights, g_weights,
+                      g_acc, g_expected, g_composite):
+    """(d density by the plain formula in float64, a bound on each element's
+    error in any f32 evaluation). d sigma_j = delta_j (gw_j T_j e_j -
+    sum_{s>j} gw_s alpha_s T_s), e = exp(-dd), alpha = 1 - e: each of gw's
+    C + 4 addends, the suffix sum's S terms and T_s = exp(-sum_{k<s} dd_k)
+    are rounded, so to first order the error is at most (S + C + 8) u times
+    the same formula over absolute values, with gw's addends taken by their
+    absolute values, T's relative error scaled by (1 + its exponent) and
+    alpha's absolute error (u e) counted, plus (S + C + 8) times the
+    absolute error of values flushed below f32's normal range. On a
+    saturated sky ray a large
+    dL/dacc makes the two sums cancel to ~1e-7 of their terms, and there the
+    bound exceeds the value: no f32 evaluation can be held closer."""
+    from presight_tpu_torch.ops import renderers as VR
+
+    args = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in (deltas, density, steps, payload, payload_index, weights, g_weights,
+                      g_acc, g_expected, g_composite)]
+    exact = VR.volume_render_bwd_plain(*args)[0]
+    deltas, density, steps, payload, payload_index, weights, g_weights, g_acc, g_expected, \
+        g_composite = args
+    r, s = deltas.shape
+    dd = deltas * density
+    e = torch.exp(-dd)
+    alpha = 1.0 - e
+    csum = torch.cat([torch.zeros_like(dd[:, :1]), torch.cumsum(dd[:, :-1], -1)], -1)
+    trans = torch.exp(-csum)
+    gabs = g_weights.abs()
+    if steps is not None:
+        b = weights.sum(-1) + 1e-10
+        a = (weights * steps).sum(-1)
+        lo, hi = torch.aminmax(steps)
+        ge = (g_expected * VR._clip_grad(a / b, lo, hi)).abs()
+        gabs = gabs + (g_acc.abs() + ge * a.abs() / (b * b))[:, None] + (ge / b)[:, None] * steps.abs()
+    c = 0
+    if payload is not None:
+        c = payload.shape[1]
+        index = (torch.arange(r * s, device=deltas.device) if payload_index is None
+                 else payload_index.long())
+        gabs = gabs + (payload[index].reshape(r, s, c) * g_composite[:, None, :]).abs().sum(-1)
+    gabs = torch.where(torch.isfinite(alpha * trans), gabs, torch.zeros_like(gabs))
+    # T_s is 0 wherever its exponent is huge: (1 + csum) T then is 0 too.
+    own = torch.nan_to_num(gabs * trans * e * (1.0 + csum + dd))
+    q = torch.nan_to_num(gabs * trans * (alpha * (1.0 + csum) + e))
+    def suffix(x):  # sum over s > j
+        x = torch.flip(torch.cumsum(torch.flip(x[:, 1:], [-1]), -1), [-1])
+        return torch.cat([x, torch.zeros_like(x[:, :1])], -1)
+
+    # Where T or a product leaves f32's normal range, it may flush to 0: an
+    # absolute error of up to 2^-126 in each.
+    floor = 2.0 ** -126 * (1.0 + deltas.abs() * (gabs + suffix(gabs)))
+    return exact, (s + c + 8) * (U32 * deltas.abs() * (own + suffix(q)) + floor)
+
+
+def check_k3b_density(chk, case, args, got):
+    """K3b's d density ``got`` on the plain version's arguments ``args``
+    against the float64 formula, element by element within
+    k3b_density_bound. The plain f32 version must meet the bound too (a
+    second witness that it is not too tight), and planted faults must each
+    fail it: d density x 0.9, zeros, and every value moved one sample along
+    its ray. Failures go to chk."""
+    from presight_tpu_torch.ops import renderers as VR
+
+    exact, tol = k3b_density_bound(*args)
+    plain = VR.volume_render_bwd_plain(*args)[0]
+
+    def out_of_bound(x):
+        return int(((x.double() - exact).abs() > tol).sum())
+
+    n = exact.numel()
+    blind = (exact.abs() <= tol)
+    err = (got.double() - exact).abs()
+    chk.errors["volume_render_bwd"] = max(chk.errors["volume_render_bwd"], float(err.max()))
+    print(f"  volume_render_bwd d density {case} vs float64: largest |d density| "
+          f"{float(exact.abs().max()):.3e}; the bound is under |d density| on {n - int(blind.sum())} "
+          f"of {n} elements (a zero passes on {int(blind.sum())}, on "
+          f"{int(blind.any(-1).sum())} of {exact.shape[0]} rays)")
+    for name, x, must_pass in (("kernel", got, True), ("plain f32 version", plain, True),
+                               ("planted fault x 0.9", got * 0.9, False),
+                               ("planted fault zeros", torch.zeros_like(got), False),
+                               ("planted fault one sample along", torch.roll(got, 1, -1), False)):
+        bad = out_of_bound(x)
+        ratio = float(((x.double() - exact).abs() / tol.clamp_min(1e-300)).max())
+        ok = (bad == 0) == must_pass
+        print(f"  volume_render_bwd d density {case}: {name} out of the bound on {bad} elements "
+              f"(largest error / bound {ratio:.3g}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            chk.failures.append(f"volume_render_bwd d density {case}: {name} "
+                                f"{'fails' if must_pass else 'passes'} the float64 check")
+
+
+@torch.no_grad()
+def check_recorded_backward(calls, chk: Checker):
+    """K1b (the main field's 'corner' table gradient), K2b (a grouped
+    proposal MLP, on K2's own ReLU masks) and K3b (the final render) on the
+    inputs recorded from the first microbatch of the reference training
+    path, against their plain versions, timed. Returns problems."""
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import mlp as M
+    from presight_tpu_torch.ops import renderers as VR
+
+    if sorted(calls) != ["k1b", "k2b", "k3b"]:
+        return [f"reference training microbatch not recorded (got {sorted(calls)})"]
+    failures = len(chk.failures)
+    pos, hcfg, eids, g = calls["k1b"]
+    case = (f"reference microbatch {hcfg.storage} {hcfg.num_levels}x{hcfg.features_per_level}F "
+            f"N={pos.shape[0]}")
+    keys, rows = check_k1b(chk, case, pos, hcfg, eids, g)
+    time_line(f"hash_encode_bwd {case}", lambda: HE.hash_encode_bwd(pos, hcfg, eids, g),
+              lambda: HE.hash_encode_bwd_plain(pos, hcfg, eids, g),
+              k1b_bound(pos, g, keys, rows))
+    layers, h, be, sig, g = calls["k2b"]
+    layers = [(w.detach(), b.detach()) for w, b in layers]
+    case = (f"reference microbatch proposal {h.shape[1]}-64-1 N={h.shape[0]} "
+            f"E={layers[0][0].shape[0]}")
+    masks = k2_masks(chk, case, layers, h, be, sig)
+    dx, grads = M.mlp_blocks_bwd(layers, h, be, sig, g)
+    pdx, pgrads = M.mlp_blocks_bwd_plain(layers, h, be, sig, g, relu_masks=masks)
+    chk.close("mlp_blocks_bwd", f"{case} dX", dx, pdx, 1e-5 * float(pdx.abs().max()), 1e-4)
+    for i, ((dw, db), (pw, pb)) in enumerate(zip(grads, pgrads)):
+        chk.close("mlp_blocks_bwd", f"{case} dW[{i}]", dw, pw, 1e-5 * float(pw.abs().max()), 1e-4)
+        chk.close("mlp_blocks_bwd", f"{case} db[{i}]", db, pb, 1e-5 * float(pb.abs().max()), 1e-4)
+    time_line(f"mlp_blocks_bwd {case}", lambda: M.mlp_blocks_bwd(layers, h, be, sig, g),
+              lambda: M.mlp_blocks_bwd_plain(layers, h, be, sig, g),
+              bound(*mlp_work(layers, h.shape[0], 6), TC_F32_FLOPS_PER_S))
+    vargs = calls["k3b"]
+    got, want = VR.volume_render_bwd(*vargs), VR.volume_render_bwd_plain(*vargs[:-1])
+    R, S = vargs[0].shape
+    C = vargs[3].shape[1]
+    case = f"reference microbatch final R={R} S={S} C={C}"
+    check_k3b_density(chk, case, vargs[:-1], got[0])
+    chk.close("volume_render_bwd", f"d payload {case}", got[1], want[1],
+              1e-5 * float(want[1].abs().max()), 1e-4)
+    time_line(f"volume_render_bwd {case}", lambda: VR.volume_render_bwd(*vargs),
+              lambda: VR.volume_render_bwd_plain(*vargs[:-1]),
+              bound(R * S * (4 * 7 + C * 4) + vargs[3].shape[0] * C * 4 + R * (C + 2) * 4,
+                    R * S * (30 + 4 * C)))
+    return chk.failures[failures:]
+
+
+def train_reference_phase(chk: Checker):
+    """Phase 11: the Trainer on boston-seaport-camera-dino-c0 at full width
+    (65,536 rays a step in microbatches of 4096) in scene_at_camera_height(),
+    as phase 7 trains the -tpu profile; K1b, K2b and K3b checked on the
+    first microbatch's recorded inputs, K5 on the recorded main-field (C =
+    4) and proposal-field (C = 1) pairs, against plain and index_add_.
+    Returns (trainer, launches on the training path, problems)."""
+    from presight_tpu_torch.configs import TILES, tile_trainer_config
+    from presight_tpu_torch.ops import hash_encoding as HE
+    from presight_tpu_torch.ops import mlp as M
+    from presight_tpu_torch.ops import renderers as VR
+
+    config = tile_trainer_config("boston-seaport", 0, "camera", tpu=False)
+    mcfg = config.pipeline.model
+    aabbs, cent, cams = scene_at_camera_height(TILES["boston-seaport"][1])
+    prop_in = mcfg.prop(0).hash.out_dim
+    specs = {
+        "k1b": (HE, "hash_encode_bwd", lambda p, c, *a: c == mcfg.field.hash, 0),
+        "k2b": (M, "mlp_blocks_bwd", lambda layers, h, be, *a: (
+            be is not None and h.shape[1] == prop_in and layers[-1][0].shape[-1] == 1), 0),
+        "k3b": (VR, "volume_render_bwd", lambda d, s, t, payload, *a: payload is not None, 0),
+    }
+    trainer, launches, recorded, calls, problems = train_phase(
+        config, aabbs, cent, cams, REFERENCE_KERNELS, specs)
+    if problems:
+        return trainer, launches, problems
+    failures = len(chk.failures)
+    check_recorded_backward(calls, chk)
+    problems = []
+    del calls
+    widths = {mcfg.field.hash.features_per_level, mcfg.prop(0).hash.features_per_level}
+    if set(recorded) != widths:
+        problems.append(f"K5 inputs recorded at C = {sorted(recorded)}, not {sorted(widths)}")
+    for C in sorted(recorded, reverse=True):
+        check_recorded_sorted_accum(chk, recorded.pop(C), f"reference training keys C={C}")
+        torch.cuda.empty_cache()
+    return trainer, launches, problems + chk.failures[failures:]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # Phase 1: the card.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1362,7 +1941,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     from presight_tpu_torch import kernels, native
-    from presight_tpu_torch.configs import TILES, tile_model_config
+    from presight_tpu_torch.configs import TILES, tile_model_config, tile_trainer_config
     from presight_tpu_torch.engine.evaluator import ImageRenderer
     from presight_tpu_torch.models.nerfacto_ms import init_model
     from presight_tpu_torch.prior.extraction import extract_voxels
@@ -1399,6 +1978,7 @@ def main() -> int:
     print("phase 3: kernels vs plain PyTorch on the card")
     chk = Checker()
     check_kernels(model, grid, chk)
+    check_deploy_capacity(model, chk)
     torch.cuda.synchronize()
     for name, (k_ms, p_ms) in chk.times.items():
         print(f"  time {name}: kernel {k_ms:.4f} ms (device {chk.device[name]:.4f} ms), plain "
@@ -1410,16 +1990,11 @@ def main() -> int:
     # Phase 4: the main path, counted.
     print("phase 4: serve")
     renderer = ImageRenderer(config)
-    H, W = 450, 800
+    H, W = RENDER_HW
     render_cams = cams_gpu.to("cuda")
     render_cams.fx, render_cams.fy = render_cams.fx * 0.5, render_cams.fy * 0.5
     render_cams.cx, render_cams.cy = render_cams.cx * 0.5, render_cams.cy * 0.5
-    items = [SimpleNamespace(H=900, W=1600, seg_path=None) for _ in range(6)]
-    dino_rng = np.random.RandomState(SEED)
-    dino_to_rgb = {"reduction_matrix": dino_rng.randn(config.semantic_dim, 3).astype(np.float32),
-                   "mean": np.full(config.semantic_dim, 0.5, np.float32),
-                   "rgb_min": np.full(3, -2.0, np.float32),
-                   "rgb_max": np.full(3, 2.0, np.float32)}
+    items, dino_to_rgb = extraction_inputs(config)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1445,23 +2020,7 @@ def main() -> int:
           f"{len(result['points'])} voxels")
     print(f"  launches on the serving path: {launches}")
 
-    problems = []
-    for key, v in img.items():
-        if not np.isfinite(v).all():
-            problems.append(f"render {key} not finite")
-    if img["rgb"].shape != (H, W, 3) or img["semantics"].shape != (H, W, config.semantic_dim):
-        problems.append(f"render shapes {img['rgb'].shape} {img['semantics'].shape}")
-    want = {"points": (np.float32, 3), "features": (np.float16, config.semantic_dim),
-            "colors": (np.float32, 3)}
-    if set(result) != {"points", "features", "colors", "hits", "origin"}:
-        problems.append(f"pickle keys {sorted(result)}")
-    for key, (dtype, width) in want.items():
-        if result[key].dtype != dtype or result[key].shape != (len(result["points"]), width):
-            problems.append(f"pickle {key} {result[key].dtype} {result[key].shape}")
-        if not np.isfinite(result[key].astype(np.float32)).all():
-            problems.append(f"pickle {key} not finite")
-    if len(result["points"]) == 0 or result["origin"].dtype != np.float32:
-        problems.append("pickle empty or origin not float32")
+    problems = serve_problems(img, result, config, H, W)
     for name in SERVE_KERNELS:
         if launches[name] <= 0:
             problems.append(f"{name} was not launched on the serving path")
@@ -1538,28 +2097,86 @@ def main() -> int:
 
     # Phase 7: train, counted.
     print("phase 7: train")
-    trainer, train_launches, step, problems = train_phase(aabbs, cent, cams, chk)
+    trainer, train_launches, recorded, _, problems = train_phase(
+        tile_trainer_config("boston-seaport", 0, "camera"), aabbs, cent, cams, KERNEL_INFO)
+    if not problems:
+        largest = max(recorded.values(), key=lambda rec: rec["rows"].numel())
+        del recorded
+        k_ms, p_ms, k_dev, chk.library["sorted_accum"], chk.bounds["sorted_accum"] = (
+            check_recorded_sorted_accum(chk, largest, "training keys"))
+        chk.times["sorted_accum"], chk.device["sorted_accum"] = (k_ms, p_ms), k_dev
+        problems = chk.failures
     if problems:
         print("phase 7 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
     # Phase 8: the training kernel path against the plain path.
     print("phase 8: train step, kernel path vs plain path")
-    problems = path_vs_plain_phase(trainer)
+    problems = path_vs_plain_phase(trainer, 2048, 1024)
     if problems:
         print("phase 8 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
+    del largest
+    torch.cuda.empty_cache()
 
+    # Phases 9-12: the reference architecture (hash-field first proposal
+    # round, per-expert proposal MLPs, 'corner' tables).
+    print(f"phase 9: the executed reference golden on the card ({time.perf_counter() - t_start:.0f}"
+          " s in)")
+    _, problems = golden_phase()
+    if problems:
+        print("phase 9 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+
+    print(f"phase 10: serve boston-seaport-camera-dino-c0 "
+          f"({time.perf_counter() - t_start:.0f} s in)")
+    render_ref, serve_ref_launches, problems = serve_reference_phase(chk)
+    if problems:
+        print("phase 10 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+
+    print(f"phase 11: train boston-seaport-camera-dino-c0 "
+          f"({time.perf_counter() - t_start:.0f} s in)")
+    trainer_ref, train_ref_launches, problems = train_reference_phase(chk)
+    if problems:
+        print("phase 11 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+
+    print("phase 12: reference train step, kernel path vs plain path "
+          f"({time.perf_counter() - t_start:.0f} s in)")
+    problems = path_vs_plain_phase(trainer_ref, 4096, 2048)
+    if problems:
+        print("phase 12 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+
+    # Phase 13: one profiled training step of each profile, after every
+    # kernel timing (profile_step).
+    print(f"phase 13: profiled training steps ({time.perf_counter() - t_start:.0f} s in)")
+    step, problems = profile_step(trainer, "step", "train_profile.txt")
+    step_ref, ref_problems = profile_step(trainer_ref, "reference step",
+                                          "train_reference_profile.txt")
+    if problems or ref_problems:
+        print("phase 13 FAILED:\n  " + "\n  ".join(problems + ref_problems), file=sys.stderr)
+        return 1
+    del trainer, trainer_ref
+    print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
+
+    paths = {"serve": serve_launches, "train": train_launches,
+             "serve_reference": serve_ref_launches, "train_reference": train_ref_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": serve_launches[name] + train_launches[name],
-         "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
+         "launches": sum(counts[name] for counts in paths.values()),
+         "launches_by_path": {path: counts[name] for path, counts in paths.items()},
          "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
          "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
          "bound_ms": chk.bounds[name][0],
          "bound_by": chk.bounds[name][1], "library_ms": chk.library.get(name),
          "step_ms": step[name][0], "step_launches": step[name][1],
-         "render_ms": render[name][0], "render_launches": render[name][1]}
+         "render_ms": render[name][0], "render_launches": render[name][1],
+         "step_reference_ms": step_ref[name][0], "step_reference_launches": step_ref[name][1],
+         "render_reference_ms": render_ref[name][0],
+         "render_reference_launches": render_ref[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

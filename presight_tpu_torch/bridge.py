@@ -24,8 +24,9 @@ def _map(tree: Any, fn) -> Any:
 
 def from_jax_params(params_np: Any, device=None) -> Any:
     """numpy tree (``jax.tree_util.tree_map(np.asarray, params)``) -> the
-    port's tree of torch tensors."""
-    return _map(params_np, lambda a: torch.as_tensor(np.array(a), device=device))
+    port's tree of torch tensors, each a C-contiguous copy (the kernels take
+    contiguous tensors only; a stack of transposed views is not)."""
+    return _map(params_np, lambda a: torch.as_tensor(np.array(a, order="C"), device=device))
 
 
 def to_numpy(state: Any) -> Any:

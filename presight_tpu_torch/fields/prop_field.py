@@ -1,12 +1,15 @@
 """Proposal density fields and the cached proposal grid
 (presight_tpu/fields/prop_field.py).
 
-The port serves the -tpu profile's proposal path: one MLP shared by all
-experts (``shared_mlp``), and a first round read from a per-expert dense
-grid of cell rows that ``refresh_prop_grid`` builds from the fine proposal
-field. ``prop_grid_density`` is the wrapper of kernel K4
-(csrc/prop_grid.cu): on CUDA tensors it launches the kernel, on CPU tensors
-it runs ``prop_grid_density_plain``.
+Two proposal MLP layouts, as in JAX: per-expert MLPs (the reference's,
+stacked (E, in, out)), evaluated on samples sorted by expert through the
+grouped K2 (``prop_density_sorted``); or one MLP shared by all experts
+(``shared_mlp``, the -tpu profile), evaluated without a sort. The -tpu
+profile's first round reads a per-expert dense grid of cell rows that
+``refresh_prop_grid`` builds from the fine proposal field.
+``prop_grid_density`` is the wrapper of kernel K4 (csrc/prop_grid.cu): on
+CUDA tensors it launches the kernel, on CPU tensors it runs
+``prop_grid_density_plain``.
 """
 
 from __future__ import annotations
@@ -19,40 +22,53 @@ from .. import kernels
 from ..configs import PropFieldConfig
 from ..ops.hash_encoding import _CORNER_BITS, hash_encode, init_hash_table, trilerp_weights
 from ..ops.math import contract_positions, trunc_exp
-from ..ops.mlp import apply_mlp, init_mlp
-from .router import assign_experts
-
-
-def _require_shared_mlp(config: PropFieldConfig) -> None:
-    if not config.shared_mlp:
-        raise NotImplementedError(
-            "per-expert proposal MLPs (prop_shared_mlp=False) are not ported yet")
+from ..ops.mlp import apply_mlp, apply_mlp_grouped, init_mlp
+from .router import Routing, assign_experts, route_positions
 
 
 def init_prop_field(generator: torch.Generator, config: PropFieldConfig, num_experts: int,
                     aabbs: torch.Tensor, centroids: torch.Tensor) -> Dict:
-    _require_shared_mlp(config)
     return {
         "hash_table": init_hash_table(generator, config.hash, num_experts),
         "mlp": init_mlp(generator, config.hash.out_dim, config.num_layers,
-                        config.hidden_dim, 1, num_experts=0),
+                        config.hidden_dim, 1, num_experts=0 if config.shared_mlp else num_experts),
         "aabbs": aabbs.clone(),
         "centroids": centroids.clone(),
     }
 
 
+def prop_density_sorted(params: Dict, config: PropFieldConfig, positions_sorted: torch.Tensor,
+                        routing: Routing) -> torch.Tensor:
+    """Density of positions sorted by expert, with per-expert MLPs: contract
+    in each sample's AABB, hash-encode with expert ids (K1), grouped MLP
+    (K2)."""
+    if config.shared_mlp:
+        raise ValueError("prop_density_sorted takes per-expert MLPs; a shared MLP goes "
+                         "through prop_density without a sort")
+    e = routing.expert_ids_sorted
+    unit, selector = contract_positions(positions_sorted, params["aabbs"][e.long()])
+    feats = hash_encode(params["hash_table"], unit.contiguous(), config.hash, expert_ids=e)
+    logit = apply_mlp_grouped(params["mlp"], feats, routing.group_sizes)[..., 0]
+    return trunc_exp(logit) * selector
+
+
 def prop_density(params: Dict, config: PropFieldConfig, positions: torch.Tensor) -> torch.Tensor:
-    """Density of the proposal field at world positions (..., 3): route to
-    the nearest expert, contract in its AABB, hash-encode with the expert
-    mixed into the hash, shared MLP."""
-    _require_shared_mlp(config)
+    """Density of the proposal field at world positions (..., 3), routed to
+    the nearest expert. A shared MLP needs no sort: contract in the
+    expert's AABB, hash-encode with the expert mixed into the hash, one MLP.
+    Per-expert MLPs sort the samples by expert and unsort the densities."""
     shape = positions.shape[:-1]
     flat = positions.reshape(-1, 3)
-    eids = assign_experts(flat, params["centroids"])
-    unit, selector = contract_positions(flat, params["aabbs"][eids.long()])
-    feats = hash_encode(params["hash_table"], unit.contiguous(), config.hash, expert_ids=eids)
-    logit = apply_mlp(params["mlp"], feats)[..., 0]
-    return (trunc_exp(logit) * selector).reshape(shape)
+    if config.shared_mlp:
+        eids = assign_experts(flat, params["centroids"])
+        unit, selector = contract_positions(flat, params["aabbs"][eids.long()])
+        feats = hash_encode(params["hash_table"], unit.contiguous(), config.hash,
+                            expert_ids=eids)
+        logit = apply_mlp(params["mlp"], feats)[..., 0]
+        return (trunc_exp(logit) * selector).reshape(shape)
+    routing = route_positions(flat, params["centroids"])
+    dens = prop_density_sorted(params, config, flat[routing.order.long()], routing)
+    return dens[routing.inverse.long()].reshape(shape)
 
 
 def prop_grid_cells(corner_density: torch.Tensor) -> torch.Tensor:
@@ -70,7 +86,6 @@ def refresh_prop_grid(params: Dict, config: PropFieldConfig, res: int,
     contracted unit coordinates, and pack cell rows. The upper face is
     evaluated at 1 - 2^-12: a coordinate of exactly 1.0 would read the
     out-of-domain cell's rows, which no sample ever reaches."""
-    _require_shared_mlp(config)
     device = params["mlp"][0][0].device
     n = (res + 1) ** 3
     lin = torch.arange(res + 1, dtype=torch.float32, device=device) / float(res)
@@ -81,7 +96,8 @@ def refresh_prop_grid(params: Dict, config: PropFieldConfig, res: int,
     for e in range(num_experts):
         eids = torch.full((n,), e, dtype=torch.int32, device=device)
         feats = hash_encode(params["hash_table"], pts, config.hash, expert_ids=eids)
-        corners.append(trunc_exp(apply_mlp(params["mlp"], feats)[..., 0]))
+        mlp = params["mlp"] if config.shared_mlp else [(w[e], b[e]) for w, b in params["mlp"]]
+        corners.append(trunc_exp(apply_mlp(mlp, feats)[..., 0]))
     corners = torch.stack(corners).reshape(num_experts, res + 1, res + 1, res + 1)
     return prop_grid_cells(corners)
 

@@ -1,6 +1,8 @@
 """Nearest-centroid expert routing (presight_tpu/fields/router.py), with
-plain index operations: sort samples by expert (stable), then lay them out
-in per-expert slabs padded to whole blocks of the grouped MLP."""
+plain index operations: sort samples by expert (stable), then, for the
+padded layout, lay them out in per-expert slabs padded to whole blocks of
+the grouped MLP. Sorting and unsorting are ``x[order]`` and
+``x[inverse]``."""
 
 from __future__ import annotations
 
@@ -49,6 +51,11 @@ def build_routing(expert_ids: torch.Tensor, num_experts: int) -> Routing:
         group_sizes=group_sizes.to(torch.int32),
         expert_ids_sorted=expert_ids[order],
     )
+
+
+def route_positions(positions: torch.Tensor, centroids: torch.Tensor) -> Routing:
+    """Sort by nearest expert, unpadded (the per-expert proposal fields)."""
+    return build_routing(assign_experts(positions, centroids), centroids.shape[0])
 
 
 def build_padded_routing(expert_ids: torch.Tensor, num_experts: int,

@@ -9,10 +9,10 @@ schedules. ``NerfactoNuscMS`` holds the tree as an ``nn.Module`` (trainable
 leaves with ``requires_grad``, the aabb and centroid buffers frozen) and
 exposes the entry points; the serving ones run under ``torch.no_grad``.
 
-Ported: the -tpu profile -- cached-grid first proposal round, proposal MLP
-shared by all experts, 'shared' hash storage (the other storages run too).
-The per-expert proposal MLPs and the hash-field first round raise
-NotImplementedError.
+Both architectures run: the reference's (a hash-field first proposal
+round, per-expert proposal MLPs, 'corner' hash storage; the JAX package's
+defaults) and the -tpu profile's (a cached-grid first round, one proposal
+MLP shared by all experts, 'shared' storage), and any mix of the two.
 """
 
 from __future__ import annotations
@@ -49,24 +49,15 @@ from ..ops.samplers import proposal_sample
 from ..ops.stepfun import distortion_loss, interlevel_loss, z_anti_aliasing_interlevel_loss
 
 
-def _check_served(config: NerfactoNuscMSConfig) -> None:
-    if not config.use_prop_grid:
-        raise NotImplementedError(
-            "the hash-field first proposal round (prop_grid_res=0) is not ported yet")
-    if not config.prop_shared_mlp:
-        raise NotImplementedError(
-            "per-expert proposal MLPs (prop_shared_mlp=False) are not ported yet")
-
-
 def init_params(generator: torch.Generator, config: NerfactoNuscMSConfig, aabbs, centroids,
                 num_train_cameras: int, num_train_videos: int) -> Dict:
     """The parameter tree with init_model's shapes and torch's default
-    inits, drawn from ``generator`` (the values differ from JAX's)."""
-    _check_served(config)
+    inits, drawn from ``generator`` (the values differ from JAX's). With the
+    cached grid, round 0 has no parameters and props[j] backs round j + 1."""
     aabbs = torch.as_tensor(aabbs, dtype=torch.float32)
     centroids = torch.as_tensor(centroids, dtype=torch.float32)
     num_experts = int(aabbs.shape[0])
-    prop_rounds = list(range(1, config.num_proposal_iterations))
+    prop_rounds = list(range(1 if config.use_prop_grid else 0, config.num_proposal_iterations))
     if config.use_same_proposal_network:
         prop_rounds = prop_rounds[:1]
     params = {
@@ -114,24 +105,32 @@ def _embed_appearance(params: Dict, config: NerfactoNuscMSConfig, bundle: RayBun
 
 def _density_fns(params: Dict, config: NerfactoNuscMSConfig,
                  prop_grid: Optional[torch.Tensor]):
-    """Round 0 reads the cached grid; round i >= 1 the fine proposal field
-    (props[0] when the proposal network is shared across rounds)."""
-    _check_served(config)
-    if prop_grid is None:
-        raise ValueError("config.prop_grid_res > 0 requires the cached grid "
-                         "(prop_grid=make_prop_grid(...))")
-    buffers = params["props"][0] if params["props"] else params["field"]
-
-    def grid_fn(positions):
-        return prop_grid_density(prop_grid, buffers["centroids"], buffers["aabbs"],
-                                 positions.contiguous(), config.prop_grid_res)
+    """One density function per proposal round. With the cached grid, round
+    0 reads the grid and round i >= 1 the proposal field props[i - 1];
+    without it, round i reads props[i]. A proposal network shared across
+    rounds is props[0] in every field round, with the first field round's
+    config."""
+    first_round = 1 if config.use_prop_grid else 0
 
     def field_fn(i):
-        cfg_idx, list_idx = (1, 0) if config.use_same_proposal_network else (i, i - 1)
+        cfg_idx, list_idx = ((first_round, 0) if config.use_same_proposal_network
+                             else (i, i - first_round))
         return lambda positions: prop_density(params["props"][list_idx], config.prop(cfg_idx),
                                               positions)
 
-    return [grid_fn] + [field_fn(i) for i in range(1, config.num_proposal_iterations)]
+    fns = [field_fn(i) for i in range(first_round, config.num_proposal_iterations)]
+    if config.use_prop_grid:
+        if prop_grid is None:
+            raise ValueError("config.prop_grid_res > 0 requires the cached grid "
+                             "(prop_grid=make_prop_grid(...))")
+        buffers = params["props"][0] if params["props"] else params["field"]
+
+        def grid_fn(positions):
+            return prop_grid_density(prop_grid, buffers["centroids"], buffers["aabbs"],
+                                     positions.contiguous(), config.prop_grid_res)
+
+        fns.insert(0, grid_fn)
+    return fns
 
 
 def _field_heads_padded(params: Dict, config: NerfactoNuscMSConfig, flat: torch.Tensor):
@@ -156,8 +155,10 @@ def forward(params: Dict, config: NerfactoNuscMSConfig, bundle: RayBundle,
         bundle, _density_fns(params, config, prop_grid),
         config.num_proposal_samples_per_ray, config.num_nerf_samples_per_ray,
         config.spacing, anneal=anneal, uniforms=uniforms, stop_prop_grad=stop_prop_grad)
-    # The cached-grid round is dropped from the loss lists, as in JAX.
-    weights_list, ray_samples_list = weights_list[1:], ray_samples_list[1:]
+    if config.use_prop_grid:
+        # The cached-grid round carries no gradient: it is dropped from the
+        # loss lists, as in JAX.
+        weights_list, ray_samples_list = weights_list[1:], ray_samples_list[1:]
 
     num_rays, num_samples = ray_samples.starts.shape
     positions = ray_samples.positions().reshape(-1, 3)
@@ -238,6 +239,23 @@ def forward_depth(params: Dict, config: NerfactoNuscMSConfig, bundle: RayBundle,
     return {"depth": render["depth"], "expected_depth": render["expected_depth"]}
 
 
+def field_density(params: Dict, config: NerfactoNuscMSConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Main-field density at world positions (..., 3)."""
+    shape = positions.shape[:-1]
+    density_p, _, _, routing = _field_heads_padded(params, config, positions.reshape(-1, 3))
+    return unpad_rows(density_p, routing).reshape(shape)
+
+
+def field_semantics(params: Dict, config: NerfactoNuscMSConfig,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Main-field semantic features at world positions (..., 3)."""
+    shape = positions.shape[:-1]
+    _, _, sem_p, routing = _field_heads_padded(params, config, positions.reshape(-1, 3))
+    sem = semantics_padded(params["field"], config.field, sem_p, routing)
+    return unpad_rows(sem, routing).reshape(*shape, -1)
+
+
 def point_queries(params: Dict, config: NerfactoNuscMSConfig, positions: torch.Tensor,
                   prop_grid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -293,7 +311,7 @@ def compute_losses(outputs: Dict, batch: Dict, config: NerfactoNuscMSConfig,
         loss_dict["semantic_loss"] = config.semantic_loss_mult * L.semantic_loss(
             outputs["semantics"], batch["features"])
     if config.enable_z_anti_aliasing:
-        # The cached-grid round is dropped from the lists by forward(); keep
+        # With the cached grid, forward() drops round 0 from the lists; keep
         # the per-round pulse widths aligned.
         pulse_width = config.pulse_width[1:] if config.use_prop_grid else config.pulse_width
         il = z_anti_aliasing_interlevel_loss(outputs["weights_list"],
@@ -395,7 +413,6 @@ class NerfactoNuscMS(nn.Module):
 
     def __init__(self, config: NerfactoNuscMSConfig, params: Dict):
         super().__init__()
-        _check_served(config)
         self.config = config
         leaves: List[torch.Tensor] = []
 
@@ -440,6 +457,14 @@ class NerfactoNuscMS(nn.Module):
     def point_queries(self, positions: torch.Tensor,
                       prop_grid: Optional[torch.Tensor] = None):
         return point_queries(self.params(), self.config, positions, prop_grid)
+
+    @torch.no_grad()
+    def field_density(self, positions: torch.Tensor) -> torch.Tensor:
+        return field_density(self.params(), self.config, positions)
+
+    @torch.no_grad()
+    def field_semantics(self, positions: torch.Tensor) -> torch.Tensor:
+        return field_semantics(self.params(), self.config, positions)
 
     @torch.no_grad()
     def make_prop_grid(self) -> Optional[torch.Tensor]:

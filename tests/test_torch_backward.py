@@ -10,12 +10,18 @@ autograd of the port's plain forward:
   * volume rendering (K3b): the densities' and the payload rows' gradients
     from weights, accumulation, expected depth and composite, with
     saturated rays (accumulation exactly 1) and empty rays (exactly 0), and
-    a batch whose expected depth ties the clip bound.
+    a batch whose expected depth ties the clip bound; and the element-wise
+    float64 bound that chip_smoke.py holds K3b's d density to on the
+    reference training path (the plain f32 version meets it, planted faults
+    fail it).
 
 Tolerances: rtol 1e-4 + atol 1e-6 of the largest gradient of the leaf: the
 sums run in another order (sorted segment sums, per-expert block sums,
 reverse cumsums) than XLA's transposes. JAX functions are jitted.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -261,3 +267,42 @@ def test_volume_render_grads_match_jax(case):
     _close(got_p, ref_p, "d payload vs jax.grad")
     _close(got_d, auto_d, "d density vs autograd of the plain forward")
     _close(got_p, auto_p, "d payload vs autograd of the plain forward")
+
+
+def test_k3b_density_bound_admits_f32_and_rejects_planted_faults():
+    """chip_smoke.py's check of K3b's d density against the float64 formula
+    (k3b_density_bound), run here with the plain f32 version as the kernel:
+    on rays that saturate gradually under a large dL/dacc (the two sums
+    cancel) beside ordinary and empty rays, the f32 evaluation meets the
+    bound, which lies under |d density| on most elements, while d density x
+    0.9, zeros and values moved one sample each fail it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+
+    gen = torch.Generator().manual_seed(3)
+    R, S, C = 64, 64, 67
+    deltas = torch.rand((R, S), generator=gen) * 0.05
+    dens = torch.exp(torch.randn((R, S), generator=gen) * 2.0) * 4.0
+    dens[:16] *= 200.0
+    dens[16:20] = 0.0
+    steps = torch.cumsum(deltas, -1) + 0.005
+    payload = torch.rand((R * S + 64, C), generator=gen)
+    index = torch.randperm(R * S + 64, generator=gen)[:R * S].int()
+    fwd = TR.volume_render_plain(deltas, dens, steps, payload, index)
+    assert bool((fwd["accumulation"][:16] == 1.0).all())
+    g_acc = torch.randn(R, generator=gen)
+    g_acc[:16] = 50.0
+    args = (deltas, dens, steps, payload, index, fwd["weights"],
+            torch.randn((R, S), generator=gen) * 1e-3, g_acc, torch.randn(R, generator=gen),
+            torch.randn((R, C), generator=gen) * 1e-2)
+    exact, tol = CS.k3b_density_bound(*args)
+    assert int((tol < exact.abs()).sum()) > exact.numel() // 2
+    plain = TR.volume_render_bwd_plain(*args)[0]
+    chk = CS.Checker()
+    CS.check_k3b_density(chk, "f32", args, plain)
+    assert chk.failures == []
+    chk = CS.Checker()
+    CS.check_k3b_density(chk, "x 0.9", args, plain * 0.9)
+    assert chk.failures == ["volume_render_bwd d density x 0.9: kernel fails the float64 check"]

@@ -78,16 +78,20 @@ def test_tile_model_config_matches_method_configs(location, tile, depth):
         np.testing.assert_array_equal(port.field.hash.scalings(), ref.field.hash.scalings())
 
 
-def test_bridge_round_trip_keeps_structure_and_values():
+BRIDGE_CONFIG = dict(
+    num_levels=2, base_res=4, max_res=32, log2_hashmap_size=6, features_per_level=2,
+    hidden_dim=8, hidden_dim_color=8,
+    proposal_net_args_list=(dict(features_per_level=2, log2_hashmap_size=5, num_levels=2,
+                                 base_res=4, max_res=16),) * 2,
+    sky_mlp_dims=8, semantic_dim=8, hash_storage="shared", prop_shared_mlp=True,
+    prop_grid_res=4, remat=False)
+
+
+def _bridge_round_trip(kw):
     """The port's init_model tree has the structure, shapes and dtypes of
     JAX's init_model (traced by eval_shape, nothing computed), and comes
-    through to_numpy -> from_jax_params -> to_numpy unchanged."""
-    kw = dict(num_levels=2, base_res=4, max_res=32, log2_hashmap_size=6, features_per_level=2,
-              hidden_dim=8, hidden_dim_color=8,
-              proposal_net_args_list=(dict(features_per_level=2, log2_hashmap_size=5,
-                                           num_levels=2, base_res=4, max_res=16),) * 2,
-              sky_mlp_dims=8, semantic_dim=8, hash_storage="shared", prop_shared_mlp=True,
-              prop_grid_res=4, remat=False)
+    through to_numpy -> from_jax_params -> to_numpy unchanged. Returns the
+    port's tree."""
     rng = np.random.RandomState(0)
     cent = rng.randn(3, 3).astype(np.float32)
     aabbs = np.stack([np.stack([c - 1, c + 1]) for c in cent]).astype(np.float32)
@@ -100,6 +104,17 @@ def test_bridge_round_trip_keeps_structure_and_values():
     for a, s in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(shapes)):
         assert (a.shape, a.dtype) == (s.shape, s.dtype)
     state = bridge.from_jax_params(params)
+    back = bridge.to_numpy(state)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(params))
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    return state
+
+
+def test_bridge_round_trip_keeps_structure_and_values():
+    state = _bridge_round_trip(BRIDGE_CONFIG)
     # Layouts kept: 'shared' tables a list of (T, 8F); stacked (E, in, out)
     # weights; the shared proposal MLP unstacked (in, out).
     assert isinstance(state["field"]["hash_table"], list)
@@ -107,12 +122,19 @@ def test_bridge_round_trip_keeps_structure_and_values():
     assert tuple(state["field"]["base_mlp"][0][0].shape) == (3, 4, 8)
     assert tuple(state["props"][0]["mlp"][0][0].shape) == (4, 64)
     assert all(isinstance(layer, tuple) for layer in state["field"]["rgb_head"])
-    back = bridge.to_numpy(state)
-    assert (jax.tree_util.tree_structure(back)
-            == jax.tree_util.tree_structure(params))
-    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(params)):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
+
+
+def test_bridge_round_trip_keeps_reference_layouts():
+    """The reference architecture: 'corner' tables (one flat (E * L * T, F)
+    table), per-expert proposal MLPs (E, in, out), a proposal field for
+    every round (no cached grid)."""
+    state = _bridge_round_trip(dict(BRIDGE_CONFIG, hash_storage="corner", prop_shared_mlp=False,
+                                    prop_grid_res=0))
+    assert tuple(state["field"]["hash_table"].shape) == (3 * 2 * 64, 2)
+    assert len(state["props"]) == 2
+    for prop in state["props"]:
+        assert tuple(prop["hash_table"].shape) == (3 * 2 * 32, 2)
+        assert [tuple(w.shape) for w, _ in prop["mlp"]] == [(3, 4, 64), (3, 64, 1)]
 
 
 def test_port_imports_without_jax():

@@ -4,6 +4,9 @@ machine, which has none:
 
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
+The golden (tests/goldens/full_model.npz) on the card is held to
+test_full_model_parity.py's quantile checks and field-query tolerances.
+
 Tolerances: as chip_smoke.py -- K1 atol 1e-7 + rtol 1e-5 (its two orders
 of (sample, level) pairs and two calls bitwise equal); K2 atol 1e-5 +
 rtol 1e-4 (3xTF32 products; its ReLU masks may differ from the plain
@@ -18,6 +21,8 @@ Sums are taken in other orders than the plain versions'; expert routing is
 exact.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,13 +32,105 @@ from presight_tpu_torch.configs import HashEncodingConfig, NerfactoNuscMSConfig,
 from presight_tpu_torch.data.cameras import CameraParams
 from presight_tpu_torch.engine.evaluator import ImageRenderer
 from presight_tpu_torch.fields import prop_field as PF
-from presight_tpu_torch.fields.router import build_padded_routing
-from presight_tpu_torch.models.nerfacto_ms import init_model
+from presight_tpu_torch.engine.import_reference import import_reference_state_dict
+from presight_tpu_torch.fields.router import build_padded_routing, build_routing
+from presight_tpu_torch.models.nerfacto_ms import NerfactoNuscMS, init_model
 from presight_tpu_torch.ops import hash_encoding as HE
 from presight_tpu_torch.ops import mlp as M
 from presight_tpu_torch.ops import renderers as VR
+from presight_tpu_torch.ops.rays import RayBundle
 
 pytestmark = pytest.mark.cuda
+
+GOLD = Path(__file__).parent / "goldens" / "full_model.npz"
+# The executed reference golden's generator config (test_full_model_parity.py).
+GOLDEN_CONFIG = dict(
+    near_plane=0.05, far_plane=50.0, piecewise_sampler_threshold=5.0,
+    num_levels=4, base_res=4, max_res=64, log2_hashmap_size=10,
+    features_per_level=2, hidden_dim=16, hidden_dim_color=16,
+    num_proposal_samples_per_ray=(12, 6), num_nerf_samples_per_ray=6,
+    proposal_net_args_list=(
+        dict(features_per_level=1, log2_hashmap_size=9, num_levels=3, base_res=4, max_res=32),
+        dict(features_per_level=1, log2_hashmap_size=9, num_levels=3, base_res=4, max_res=64),
+    ),
+    num_sky_mlp_layers=3, sky_mlp_dims=16, use_semantics=True, semantic_dim=64,
+    appearance_embed_dim=4, video_embed_dim=12, hash_storage="corner",
+)
+
+
+def load_golden():
+    """(reference state_dict, rays and outputs, the port's config)."""
+    data = np.load(GOLD)
+    state = {k[len("state::"):]: data[k] for k in data.files if k.startswith("state::")}
+    io = {k: data[k] for k in data.files if not k.startswith("state::")}
+    return state, io, NerfactoNuscMSConfig(**GOLDEN_CONFIG)
+
+
+def golden_bundle(io, device):
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    n = len(io["origins"])
+    return RayBundle(origins=t(io["origins"]), directions=t(io["directions"]),
+                     nears=torch.zeros(n, device=device), fars=torch.zeros(n, device=device),
+                     camera_indices=t(io["camera_indices"][:, 0]),
+                     video_ids=t(io["video_ids"][:, 0]))
+
+
+def quantile_report(name, ours, ref, tight=2e-4, tight_frac=0.9, worst=0.08, median_tol=5e-5):
+    """test_full_model_parity.py's check: the median ray at fp-accumulation
+    level, >= 90% of rays tight, the worst ray within one resampled bin.
+    Returns (line, ok)."""
+    per_ray = np.abs(np.asarray(ours) - ref).reshape(len(ref), -1).max(-1)
+    med, frac, top = float(np.median(per_ray)), float((per_ray < tight).mean()), float(per_ray.max())
+    ok = med < median_tol and frac >= tight_frac and top < worst
+    return (f"golden {name}: median ray {med:.3e} (< {median_tol:g}), {frac:.3f} of rays within "
+            f"{tight:g} (>= {tight_frac:g}), worst {top:.3e} (< {worst:g})", ok)
+
+
+def golden_forward_report(out, io, far=50.0):
+    """An eval forward's outputs (numpy) against the golden, at
+    test_full_model_parity.py's tolerances: [(line, ok)]."""
+    return [
+        quantile_report("rgb", out["rgb"], io["rgb"]),
+        quantile_report("accumulation", out["accumulation"][:, None], io["accumulation"],
+                        tight=5e-4, median_tol=5e-4, worst=0.01),
+        quantile_report("semantics", out["semantics"], io["semantics"], median_tol=2e-4),
+        quantile_report("expected_depth", out["expected_depth"][:, None] / far,
+                        io["expected_depth"] / far, tight=1e-2, median_tol=5e-3, worst=0.05),
+        quantile_report("depth", out["depth"][:, None] / far, io["depth"] / far, tight=1e-2,
+                        median_tol=5e-3, worst=0.05),
+    ]
+
+
+@torch.no_grad()
+def golden_query_report(model, io):
+    """The field queries (field_density, field_semantics, prop_density of
+    each round) at the golden's query points against its values, at
+    test_full_model_parity.py's rtol and atol: [(line, ok)]."""
+    pts = torch.from_numpy(io["query_points"]).to(next(model.parameters()).device)
+    props = model.params()["props"]
+    queries = [("field_density", model.field_density(pts), io["query_density"], 2e-4, 1e-5),
+               ("field_semantics", model.field_semantics(pts), io["query_semantics"], 1e-3, 2e-5)]
+    queries += [(f"prop_density round {i}", PF.prop_density(props[i], model.config.prop(i), pts),
+                 io[f"query_prop_density_{i}"], 2e-4, 1e-5) for i in range(len(props))]
+    report = []
+    for name, got, want, rtol, atol in queries:
+        got = got.cpu().numpy()
+        err = np.abs(got - want)
+        bad = int((~(err <= atol + rtol * np.abs(want))).sum())  # NaN counts as out
+        report.append((f"golden {name}: {bad} values out of tolerance, max_abs_err="
+                       f"{float(err.max()):.3e}, tol=atol {atol:g} + rtol {rtol:g}",
+                       got.shape == want.shape and bad == 0))
+    return report
+
+
+def check_golden_forward(out, io, far=50.0):
+    failed = [line for line, ok in golden_forward_report(out, io, far) if not ok]
+    assert not failed, failed
+
+
+def check_golden_queries(model, io):
+    failed = [line for line, ok in golden_query_report(model, io) if not ok]
+    assert not failed, failed
 
 SMALL = dict(
     near_plane=0.005, far_plane=50.0, piecewise_sampler_threshold=5.0, num_levels=2,
@@ -385,6 +482,78 @@ def _layout_without_expert_1(gen, rows):
     """Three experts, expert 1 owning no block."""
     eids = torch.randint(0, 2, (rows,), generator=gen, device="cuda", dtype=torch.int32) * 2
     return build_padded_routing(eids, 3, 512).block_expert
+
+
+@pytest.mark.parametrize("C", [4, 1])
+def test_sorted_accum_kernel_on_corner_keys_near_2_27(C):
+    """K5 on keys of the reference's 'corner' tables: one (E * L * T, C)
+    table whose keys reach E * L * T = 1.68e8 on the main field, here keys
+    around 2^27 into a 2^27 + 2^16-row output; C = 4 (the main field,
+    16-byte copies) and C = 1 (a proposal field, 4-byte copies); a
+    10,000-row run and the output's last row; two calls bitwise equal."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, num_rows = 300_000, 2 ** 27 + 2 ** 16
+    keys = torch.randint(2 ** 27 - 2 ** 16, num_rows, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    keys[:10_000] = 2 ** 27 - 1
+    keys[-5:] = num_rows - 1
+    keys, order = torch.sort(keys, stable=True)
+    rows = torch.rand((n, C), generator=gen, device="cuda")
+    got = torch.zeros((num_rows, C), device="cuda")
+    want, again = got.clone(), got.clone()
+    HE.sorted_accum(keys, rows, got, order)
+    HE.sorted_accum_plain(keys, rows, want, order)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert float(got[2 ** 27 - 1].sum()) > 1000.0
+    HE.sorted_accum(keys, rows, again, order)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("in_dim", [3, 8])
+def test_grouped_proposal_mlp_kernels_match_plain(in_dim):
+    """K2 and K2b on per-expert proposal MLPs in-64-1 over 16 experts (in =
+    3: the golden's, in = 8: the reference tile's) in apply_mlp_grouped's
+    block layout, n_pad = (ceil(n / 512) + E) * 512; and apply_mlp_grouped
+    on the card against the same call on the CPU."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    E, n = 16, 30_000
+    eids = torch.randint(0, E, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    eids[eids == 5] = 6  # an expert with no rows
+    group_sizes = build_routing(eids, E).group_sizes
+    layers = _mlp_layers(gen, [in_dim, 64, 1], E)
+    x = torch.randn((n, in_dim), generator=gen, device="cuda")
+    _, src, valid, be, n_pad = M._blocked_layout(group_sizes, n, 512)
+    assert n_pad == (-(-n // 512) + E) * 512
+    h = x[src.long()] * valid[:, None]
+    torch.testing.assert_close(M.mlp_blocks_fwd(layers, h, be),
+                               M.apply_mlp_blocks_plain(layers, h, be), rtol=1e-4, atol=1e-5)
+    grads = _check_bwd(layers, h, be, False,
+                       torch.randn((n_pad, 1), generator=gen, device="cuda"))
+    assert not bool(grads[0][0][5].any())
+    kernels.reset_launches()
+    got = M.apply_mlp_grouped(layers, x, group_sizes)
+    assert kernels.LAUNCHES["mlp_blocks_fwd"] == 1
+    want = M.apply_mlp_grouped([(w.cpu(), b.cpu()) for w, b in layers], x.cpu(),
+                               group_sizes.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_golden_on_the_card():
+    """The executed reference golden imported onto the card: the eval
+    forward through K1, K2 and K3 under the golden test's quantile checks,
+    and the field queries at its rtol and atol."""
+    _need_cuda()
+    state, io, cfg = load_golden()
+    model = NerfactoNuscMS(cfg, import_reference_state_dict(state, cfg, device="cuda"))
+    kernels.reset_launches()
+    out = model(golden_bundle(io, "cuda"), train=False, stop_prop_grad=True)
+    for name in ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd"):
+        assert kernels.LAUNCHES[name] > 0, name
+    check_golden_forward({k: v.cpu().numpy() for k, v in out.items()
+                          if isinstance(v, torch.Tensor)}, io)
+    check_golden_queries(model, io)
 
 
 def test_mlp_blocks_fwd_kernel_matches_plain():

@@ -11,7 +11,6 @@ test_extraction_matches_jax. The kernels themselves are checked on the card
 by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
-import dataclasses
 import pickle
 
 import jax
@@ -162,12 +161,38 @@ def test_image_renderer_matches_jax(slice_run):
         _close(out["image"][key], v)
 
 
-def test_unported_paths_raise(slice_run):
-    _, _, model = slice_run
-    for change in (dict(prop_grid_res=0), dict(prop_shared_mlp=False)):
-        cfg = dataclasses.replace(TCfg.NerfactoNuscMSConfig(**TINY), **change)
-        with pytest.raises(NotImplementedError):
-            TM.NerfactoNuscMS(cfg, model.params())
+@pytest.mark.parametrize("change", [dict(prop_grid_res=0), dict(prop_shared_mlp=False)],
+                         ids=["hash_field_first_round", "per_expert_proposal_mlps"])
+def test_reference_paths_build_and_run(change):
+    """Each half of the reference architecture on the -tpu-shaped config:
+    the hash-field first proposal round, and per-expert proposal MLPs with
+    the cached grid. The model builds, and its eval forward matches JAX's."""
+    rng = np.random.RandomState(1)
+    cent = (rng.randn(2, 3) * 0.5).astype(np.float32)
+    aabbs = np.stack([np.stack([c - 1.5, c + 1.5]) for c in cent]).astype(np.float32)
+    kw = dict(TINY, **change)
+    jcfg, tcfg = JM.NerfactoNuscMSConfig(**kw), TCfg.NerfactoNuscMSConfig(**kw)
+    init = TM.init_model(torch.Generator().manual_seed(0), tcfg, aabbs, cent, 6, 2, device="cpu")
+    params_np = bridge.to_numpy(init.params())
+    for tree in (params_np["field"], *params_np["props"]):
+        tree["hash_table"] = [t * 3e3 for t in tree["hash_table"]]
+    params = jax.tree_util.tree_map(jnp.asarray, params_np)
+    model = TM.NerfactoNuscMS(tcfg, bridge.from_jax_params(params_np))
+    assert len(params_np["props"]) == (2 if tcfg.prop_grid_res == 0 else 1)
+    R = 48
+    d = rng.randn(R, 3).astype(np.float32)
+    kw = dict(origins=(rng.randn(R, 3) * 0.3).astype(np.float32),
+              directions=d / np.linalg.norm(d, axis=-1, keepdims=True),
+              nears=np.zeros(R, np.float32), fars=np.ones(R, np.float32))
+    jgrid = jax.jit(lambda p: JM.make_prop_grid(p, jcfg))(params)
+    key = jax.random.PRNGKey(0)
+    jo = jax.jit(lambda p, b, g: JM.forward(p, jcfg, b, key, 1.0, train=False,
+                                            stop_prop_grad=True, prop_grid=g))(
+        params, JRayBundle(**{k: jnp.asarray(v) for k, v in kw.items()}), jgrid)
+    to = model(RayBundle(**{k: _t(v) for k, v in kw.items()}), prop_grid=model.make_prop_grid())
+    for key in ("rgb", "accumulation", "depth", "expected_depth", "semantics"):
+        _close(to[key].numpy(), jo[key])
+    assert len(to["weights_list"]) == len(jo["weights_list"])
 
 
 def test_extraction_matches_jax(tmp_path):

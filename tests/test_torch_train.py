@@ -6,8 +6,10 @@ the Adam schedule, the trainer config, and a short training run whose loss
 falls.
 
 The step runs the tiny -tpu-shaped config of test_torch_slice.py (lidar
-depth loss on, so the expected-depth and line-of-sight gradients flow too)
-on the same weights (drawn by the port, carried to JAX by the bridge), the
+depth loss on, so the expected-depth and line-of-sight gradients flow too),
+and that config made reference-exact (REFERENCE: 'corner' storage,
+per-expert proposal MLPs, a hash-field first round, no grid), on the same
+weights (drawn by the port, carried to JAX by the bridge), the
 same cached grid, the same batch and JAX's own random draws, which the test
 makes as JAX's step makes them (one key per microbatch, one split per
 sampling round) and hands to the port.
@@ -54,17 +56,20 @@ from test_torch_slice import TINY
 
 R = 32
 OPT = dict(lr=1e-2, max_steps=100, warmup_steps=10, milestones=(25, 50, 75))
+PROFILES = {"tpu": TINY,
+            "reference": dict(TINY, hash_storage="corner", prop_shared_mlp=False, prop_grid_res=0)}
 
 
-def _setup():
+def _setup(kw=TINY):
     rng = np.random.RandomState(0)
     cent = (rng.randn(2, 3) * 0.5).astype(np.float32)
     aabbs = np.stack([np.stack([c - 1.5, c + 1.5]) for c in cent]).astype(np.float32)
-    jcfg, tcfg = JM.NerfactoNuscMSConfig(**TINY), TCfg.NerfactoNuscMSConfig(**TINY)
+    jcfg, tcfg = JM.NerfactoNuscMSConfig(**kw), TCfg.NerfactoNuscMSConfig(**kw)
     init = TM.init_model(torch.Generator().manual_seed(0), tcfg, aabbs, cent, 6, 2, device="cpu")
     params_np = bridge.to_numpy(init.params())
-    for tree in (params_np["field"], params_np["props"][0]):
-        tree["hash_table"] = [t * 3e3 for t in tree["hash_table"]]
+    for tree in (params_np["field"], *params_np["props"]):
+        t = tree["hash_table"]
+        tree["hash_table"] = [x * 3e3 for x in t] if isinstance(t, list) else t * 3e3
     n = 3
     c2w = np.tile(np.eye(3, 4, dtype=np.float32)[None], (n, 1, 1))
     c2w[:, :3, 3] = (rng.randn(n, 3) * 0.3).astype(np.float32)
@@ -103,9 +108,10 @@ def _jax_draws(key, k, micro, rounds):
     return out
 
 
-@pytest.mark.parametrize("k", [1, 2])
-def test_train_step_matches_jax(k):
-    jcfg, tcfg, params_np, cams, batch = _setup()
+@pytest.mark.parametrize("k,profile", [(1, "tpu"), (2, "tpu"), (1, "reference")],
+                         ids=["1", "2", "reference"])
+def test_train_step_matches_jax(k, profile):
+    jcfg, tcfg, params_np, cams, batch = _setup(PROFILES[profile])
     micro = R // k
     scal = (np.float32(0.5), np.float32(3.0), np.float32(0.05))
     jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
@@ -129,7 +135,8 @@ def test_train_step_matches_jax(k):
     metrics = train_step(
         model, optimizers, CameraParams(**{k_: torch.from_numpy(v) for k_, v in cams.items()}),
         {k_: torch.from_numpy(v) for k_, v in batch.items()}, StepScalars(*map(float, scal)),
-        stop_prop_grad=False, microbatch_rays=micro, prop_grid=torch.from_numpy(np.array(jgrid)),
+        stop_prop_grad=False, microbatch_rays=micro,
+        prop_grid=None if jgrid is None else torch.from_numpy(np.array(jgrid)),
         draws=_jax_draws(key, k, micro, len(tcfg.num_proposal_samples_per_ray) + 1))
 
     assert set(metrics) == set(ref)
@@ -208,13 +215,15 @@ def test_adam_schedule_and_update_match_optax():
         np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), rtol=1e-6, atol=1e-8)
 
 
-def test_tile_trainer_config_matches_method_configs():
+@pytest.mark.parametrize("tpu", [True, False], ids=["tpu", "reference"])
+def test_tile_trainer_config_matches_method_configs(tpu):
     from presight_tpu.configs.method_configs import build_method_configs
     from presight_tpu.data.datamanager import DataManagerConfig as JDM
     from presight_tpu.engine.trainer import TrainerConfig as JTrainer
 
-    ref = build_method_configs()["boston-seaport-camera-dino-c0-tpu"]
-    port = TCfg.tile_trainer_config("boston-seaport", 0, "camera")
+    ref = build_method_configs()["boston-seaport-camera-dino-c0" + ("-tpu" if tpu else "")]
+    port = TCfg.tile_trainer_config("boston-seaport", 0, "camera", tpu=tpu)
+    assert port.microbatch_rays == (1024 if tpu else 4096)
     for name in ("max_num_iterations", "seed", "microbatch_rays"):
         assert getattr(port, name) == getattr(ref, name), name
     assert {k: dataclasses.asdict(v) for k, v in port.optimizers.items()} == \
