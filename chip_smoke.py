@@ -88,10 +88,34 @@ defaults):
      AccumulateGrad's device time, and a check that AccumulateGrad never ran
      on a hash table (the tables go to outputs/chip_smoke/train_profile.txt
      and train_reference_profile.txt).
+Phases 14-16 drive the data path from disk (everything under
+outputs/chip_smoke/):
+ 14. the JPEG codec (presight_tpu_torch/native/jpeg.cpp) built by g++ on
+     the card's host; the checked-in goldens (tests/goldens/jpeg/, written
+     by tests/make_jpeg_goldens.py with Pillow) decoded to Pillow's pixels;
+     the decode time of one 1600x900 image, alone and in the data
+     manager's pool of threads;
+ 15. the 45x80 fixture written by the port's generate_scene; the
+     demo-scale -tpu profile of tests/test_quality_floor.py trained 60 steps
+     from it through Trainer(config) (the whole set in the device store);
+     held-out PSNR >= 12 and depth RMSE <= 8 m from evaluate_images; every
+     kernel launched on this path;
+ 16. a 180x320 fixture with 64-wide features (over the 512-MB whole-set
+     cap, so the ChunkDeviceStore); scripts.train.main on
+     boston-seaport-camera-dino-c0-tpu pointed at it: 3 steps saving every
+     2, then resumed to 5; config.yml read back, the checkpoints saved (2,
+     3, 4, 5; keep-only-latest leaves 5), finite losses, the first batch on
+     the card against the CPU DataManager's rows, the resumed start step
+     (3) and chunk step (seed + 3); every kernel launched on this path; the
+     fixture's write time, a chunk load, the steady step from disk beside
+     phase 7's in-memory step; one more step from disk under
+     torch.profiler (step_disk_ms, step_disk_launches; the table goes to
+     outputs/chip_smoke/train_disk_profile.txt).
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
-all, and by path: serve, train, serve_reference, train_reference), error,
+all, and by path: serve, train, serve_reference, train_reference,
+train_quality, train_disk), error,
 times (ms, plain_ms and library_ms by CUDA events around one call;
 device_ms by CUDA events around ten calls queued behind a spin), bound,
 and device time (torch.profiler) and launches in one training step and in
@@ -1199,7 +1223,8 @@ def train_phase(config, aabbs, cent, cams, expected, record_specs=None):
     set. Fails unless every kernel of ``expected`` was launched on the
     training path and no other. Returns (trainer, launches on the training
     path, the recorded K5 inputs by row width, the calls recorded by
-    ``record_specs`` (recording_calls), problems)."""
+    ``record_specs`` (recording_calls), problems, the median steady step in
+    seconds)."""
     from presight_tpu_torch import kernels
     from presight_tpu_torch.data.device_store import DeviceRayStore
     from presight_tpu_torch.engine.trainer import Trainer
@@ -1207,7 +1232,8 @@ def train_phase(config, aabbs, cent, cams, expected, record_specs=None):
     rgb, sky, depth, feats, train_cams = synthetic_dataset(cams, config.pipeline.model.semantic_dim)
     t0 = time.perf_counter()
     store = DeviceRayStore(rgb, sky, depth, feats)
-    trainer = Trainer(config, store, train_cams, aabbs, cent, num_train_cameras=len(rgb),
+    trainer = Trainer.in_memory(config, store, train_cams, aabbs, cent,
+                                num_train_cameras=len(rgb),
                       num_train_videos=1)
     torch.cuda.synchronize()
     rays = config.pipeline.datamanager.train_num_rays_per_batch
@@ -1248,7 +1274,7 @@ def train_phase(config, aabbs, cent, cams, expected, record_specs=None):
             problems.append(f"{name} was launched {launches[name]} times on the training path")
     if not recorded:
         problems.append("no K5 launch on a training microbatch was recorded")
-    return trainer, launches, recorded, calls, problems
+    return trainer, launches, recorded, calls, problems, statistics.median(steady)
 
 
 def profile_step(trainer, label, out_name):
@@ -1909,7 +1935,7 @@ def train_reference_phase(chk: Checker):
             be is not None and h.shape[1] == prop_in and layers[-1][0].shape[-1] == 1), 0),
         "k3b": (VR, "volume_render_bwd", lambda d, s, t, payload, *a: payload is not None, 0),
     }
-    trainer, launches, recorded, calls, problems = train_phase(
+    trainer, launches, recorded, calls, problems, _ = train_phase(
         config, aabbs, cent, cams, REFERENCE_KERNELS, specs)
     if problems:
         return trainer, launches, problems
@@ -1924,6 +1950,326 @@ def train_reference_phase(chk: Checker):
         check_recorded_sorted_accum(chk, recorded.pop(C), f"reference training keys C={C}")
         torch.cuda.empty_cache()
     return trainer, launches, problems + chk.failures[failures:]
+
+
+# Phases 14-16: the data path from disk (image codec, chunked dataset, data
+# manager, device stores, config.yml, checkpoints and the train CLI).
+REPO = Path(__file__).resolve().parent
+GOLDENS = REPO / "tests" / "goldens" / "jpeg"
+NUSCENES_HW = (900, 1600)
+QUALITY_ITERS = 60
+# The demo-scale -tpu profile of the quality floor (tests/test_quality_floor.py:
+# presight_tpu/scripts/quality_study.py variant_model(synthetic-demo's model,
+# "grid-n48-cap4x-p64x32")), held against it by tests/test_torch_trainer_disk.py.
+QUALITY_VARIANT = dict(
+    num_levels=4, features_per_level=3, num_proposal_samples_per_ray=(64, 32),
+    num_nerf_samples_per_ray=48,
+    proposal_net_args_list=(
+        dict(features_per_level=4, log2_hashmap_size=10, num_levels=2, base_res=16,
+             max_res=256),
+        dict(features_per_level=4, log2_hashmap_size=10, num_levels=2, base_res=16,
+             max_res=512)),
+    prop_shared_mlp=True, prop_grid_res=64, hash_storage="shared")
+DISK_FIXTURE = dict(height=180, width=320, feature_dim=64)
+DISK_METHOD = "boston-seaport-camera-dino-c0-tpu"
+
+
+def codec_phase():
+    """Phase 14: the JPEG codec on the card's host: g++ build, the checked-in
+    goldens decoded to Pillow's pixels (by the data manager's thread pool,
+    all at once), and the decode time of one 1600x900 image at Pillow's
+    default settings, alone and in the pool. Returns problems."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from presight_tpu_torch.configs import DataManagerConfig
+    from presight_tpu_torch.native import jpeg
+
+    t0 = time.perf_counter()
+    jpeg.lib()
+    print(f"  codec built by g++ in {time.perf_counter() - t0:.2f} s")
+    problems = []
+    want = np.load(GOLDENS / "pixels.npz")
+    threads = DataManagerConfig().num_threads
+    # The process's first decodes: every golden twice, by the pool's threads at once.
+    names = sorted(want.files) * 2
+    with ThreadPoolExecutor(threads) as pool:
+        decoded = list(pool.map(lambda name: jpeg.decode(GOLDENS / f"{name}.jpg"), names))
+    for name, got in zip(names, decoded):
+        same = got.shape == want[name].shape and np.array_equal(got, want[name])
+        print(f"  golden {name} {want[name].shape} (pool of {threads} threads): "
+              f"{'identical' if same else 'DIFFERENT'} pixels")
+        if not same:
+            problems.append(f"golden {name} decodes to other pixels than Pillow's")
+    H, W = NUSCENES_HW
+    rng = np.random.RandomState(SEED)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(xx / W * 9), 0.5 + 0.4 * np.cos(yy / H * 7),
+                    0.4 + 0.3 * np.sin((xx + yy) / (W + H) * 12)], -1)
+    img = (np.clip(img + rng.randn(H, W, 3).astype(np.float32) * 0.05, 0, 1) * 255)
+    data = jpeg.encode(img.astype(np.uint8))
+    jpeg.decode(data)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        jpeg.decode(data)
+        times.append(time.perf_counter() - t0)
+    n = 64
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(jpeg.decode, [data] * threads))
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode, [data] * n))
+        pooled = time.perf_counter() - t0
+    single = statistics.median(times)
+    print(f"  decode {W}x{H} (quality 75, 4:2:0, {len(data)} bytes): single thread median "
+          f"{single * 1e3:.2f} ms; pool of {threads} threads {pooled / n * 1e3:.2f} ms an image "
+          f"({single * n / pooled:.2f}x)")
+    return problems
+
+
+def quality_config(data_dir: Path, out_dir: Path):
+    """The quality floor's run (quality_study.run_variant at QUALITY_ITERS
+    iterations, seed 42) over the fixture at ``data_dir``."""
+    from presight_tpu_torch.configs.method_configs import method_configs
+
+    iters = QUALITY_ITERS
+    base = method_configs["synthetic-demo"]
+    model = dataclasses.replace(
+        base.pipeline.model, **QUALITY_VARIANT, eval_num_rays_per_chunk=1 << 12,
+        proposal_warmup=iters // 4, proposal_weights_anneal_max_num_iters=iters // 4,
+        line_of_sight_start_step=iters // 4, line_of_sight_end_step=iters,
+        line_of_sight_decay_steps=iters)
+    pipeline = dataclasses.replace(
+        base.pipeline, model=model,
+        dataparser=dataclasses.replace(base.pipeline.dataparser, data_dir=data_dir,
+                                       centroids_dir=data_dir / "centroids"))
+    return dataclasses.replace(
+        base, max_num_iterations=iters, device_ray_store_mb=2048,
+        steps_per_save=max(iters, 100), steps_per_eval_batch=0, steps_per_eval_image=10 ** 9,
+        seed=42, experiment_name="quality-grid-n48-cap4x-p64x32-s42", output_dir=out_dir,
+        timestamp="study", pipeline=pipeline)
+
+
+def quality_phase():
+    """Phase 15: the fixture written by the port (45x80), the demo-scale -tpu
+    profile trained QUALITY_ITERS steps from it through Trainer(config)
+    (the whole set in the device store), held-out PSNR and depth RMSE from
+    evaluate_images against tests/test_quality_floor.py's floors. Returns
+    (launches on the path, problems)."""
+    import shutil
+
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.data.synthetic import generate_scene
+    from presight_tpu_torch.engine.evaluator import evaluate_images
+    from presight_tpu_torch.engine.trainer import Trainer
+
+    root = OUT_DIR / "fixture_45x80"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(OUT_DIR / "quality", ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_scene(root)
+    print(f"  fixture 45x80 written in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trainer = Trainer(quality_config(root, OUT_DIR / "quality"))
+    trainer.setup()
+    problems = [] if trainer.store is not None else ["the quality run did not stage its set"]
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = evaluate_images(trainer.model, trainer.model_config, trainer.eval_cameras,
+                        trainer.eval_items, with_lpips=False, with_depth=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  {QUALITY_ITERS} steps in {wall:.2f} s; held-out ({len(trainer.eval_items)} images) "
+          f"psnr {m['psnr']:.3f} (floor 12), ssim {m['ssim']:.4f}, depth_rmse "
+          f"{m['depth_rmse']:.3f} m (ceiling 8)")
+    print(f"  launches on the quality path: {launches}")
+    if not (np.isfinite(m["psnr"]) and m["psnr"] >= 12.0):
+        problems.append(f"held-out PSNR {m['psnr']} under the floor of 12")
+    if not (np.isfinite(m["depth_rmse"]) and m["depth_rmse"] <= 8.0):
+        problems.append(f"held-out depth RMSE {m['depth_rmse']} m over the ceiling of 8 m")
+    for name in KERNEL_INFO:
+        if launches[name] <= 0:
+            problems.append(f"{name} was not launched on the quality path")
+    return launches, problems
+
+
+@contextlib.contextmanager
+def recording_trainer_runs():
+    """While active, keep each Trainer that runs setup() with its start step
+    and chunk step after setup, each training step's metrics and seconds
+    (from the batch fetch to the step's end, synchronised: the Trainer's
+    step_seconds) and the seconds its batch fetch took (waiting on the
+    prefetched chunk included), the first batch each trainer hands its
+    step, and the step of each checkpoint saved."""
+    from presight_tpu_torch.data.datamanager import DataManager
+    from presight_tpu_torch.engine import trainer as T
+
+    rec = SimpleNamespace(trainers=[], setups=[], metrics=[], seconds=[], waits=[],
+                          first_batch={}, saves=[], t0=None)
+    real = (T.Trainer.setup, T.train_step, T.save_checkpoint, T.Trainer._make_batch,
+            DataManager.next_batch)
+
+    def setup(self, *args, **kwargs):
+        real[0](self, *args, **kwargs)
+        rec.trainers.append(self)
+        rec.setups.append((self.start_step, self.datamanager._chunk_step))
+
+    def step(*args, **kwargs):
+        out = real[1](*args, **kwargs)
+        torch.cuda.synchronize()
+        rec.seconds.append(time.perf_counter() - rec.t0)
+        rec.metrics.append(dict(out))
+        return out
+
+    def save(run_dir, step, *args, **kwargs):
+        rec.saves.append(step)
+        return real[2](run_dir, step, *args, **kwargs)
+
+    def make_batch(self, batch, use_store=True):
+        out = real[3](self, batch, use_store)
+        if use_store and id(self) not in rec.first_batch:
+            rec.first_batch[id(self)] = {k: v.cpu() for k, v in out.items()}
+        return out
+
+    def next_batch(self):
+        rec.t0 = time.perf_counter()
+        out = real[4](self)
+        rec.waits.append(time.perf_counter() - rec.t0)
+        return out
+
+    (T.Trainer.setup, T.train_step, T.save_checkpoint, T.Trainer._make_batch,
+     DataManager.next_batch) = (setup, step, save, make_batch, next_batch)
+    try:
+        yield rec
+    finally:
+        (T.Trainer.setup, T.train_step, T.save_checkpoint, T.Trainer._make_batch,
+         DataManager.next_batch) = real
+
+
+def disk_cli_phase(memory_step_s: float):
+    """Phase 16: a 180x320 fixture with 64-wide features (72 images, over
+    the 512-MB whole-set cap, so the ChunkDeviceStore), written by the port;
+    ``scripts.train.main`` on boston-seaport-camera-dino-c0-tpu pointed at
+    it: 3 steps saving every 2, then resumed to 5. Checks config.yml, the
+    checkpoints, finite losses, the first batch against the CPU
+    DataManager's rows and the resume offsets; times the fixture, a chunk
+    load and the steady step from disk beside phase 7's in-memory step;
+    profiles one more step from disk. Returns (launches on the path, the
+    profiled step, problems)."""
+    import shutil
+
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs.config_io import (apply_overrides, load_config,
+                                                      parse_cli_overrides)
+    from presight_tpu_torch.configs.method_configs import method_configs
+    from presight_tpu_torch.data.datamanager import DataManager
+    from presight_tpu_torch.data.synthetic import generate_scene
+    from presight_tpu_torch.engine.trainer import Trainer
+    from presight_tpu_torch.scripts import train as train_cli
+
+    root = OUT_DIR / "fixture_180x320"
+    runs = OUT_DIR / "runs"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(runs, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_scene(root, **DISK_FIXTURE)
+    print(f"  fixture {DISK_FIXTURE['height']}x{DISK_FIXTURE['width']} with "
+          f"{DISK_FIXTURE['feature_dim']}-wide features written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    overrides = ["--pipeline.dataparser.data-dir", str(root),
+                 "--pipeline.dataparser.centroids-dir", str(root / "centroids"),
+                 "--pipeline.dataparser.location", "synthetic-city",
+                 "--output-dir", str(runs), "--timestamp", "cli", "--steps-per-save", "2"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with recording_trainer_runs() as rec:
+        for end in (3, 5):
+            t0 = time.perf_counter()
+            rc = train_cli.main([DISK_METHOD, *overrides, "--max-num-iterations", str(end)])
+            torch.cuda.synchronize()
+            print(f"  train CLI to step {end}: exit {rc} in {time.perf_counter() - t0:.2f} s")
+            if rc != 0:
+                return dict(kernels.LAUNCHES), None, [f"the train CLI exited {rc}"]
+    launches = dict(kernels.LAUNCHES)
+    print(f"  launches on the from-disk CLI path: {launches}")
+    problems = [f"{name} was not launched on the from-disk CLI path"
+                for name in KERNEL_INFO if launches[name] <= 0]
+    first, resumed = rec.trainers
+    # Each run writes config.yml; the resumed one's is there at the end.
+    config = apply_overrides(method_configs[DISK_METHOD],
+                             parse_cli_overrides(overrides + ["--max-num-iterations", "5"]))
+    same = load_config(first.run_dir / "config.yml") == config
+    print(f"  config.yml reads back {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        problems.append("config.yml does not read back to the run's config")
+    ckpts = sorted(p.name for p in (first.run_dir / "nerfstudio_models").iterdir())
+    print(f"  checkpoints saved at steps {rec.saves}; on disk at the end {ckpts}")
+    if rec.saves != [2, 3, 4, 5] or ckpts != ["step-000000005.ckpt"]:
+        problems.append(f"checkpoints saved at {rec.saves}, on disk {ckpts}")
+    store = first._chunk_store
+    print(f"  store: whole set {first.store is not None}, chunk store "
+          f"{store is not None and store.enabled}")
+    if store is None or not store.enabled or first.store is not None:
+        problems.append("the from-disk run did not go through the ChunkDeviceStore")
+    for step, m in enumerate(rec.metrics):
+        losses = {k: v for k, v in m.items() if k.endswith("loss")}
+        print(f"  step {step}: {rec.seconds[step]:.3f} s (batch fetch {rec.waits[step]:.3f} s), "
+              + ", ".join(f"{k}={v:.6g}" for k, v in losses.items()))
+        if not all(np.isfinite(v) for v in m.values()):
+            problems.append(f"step {step}: non-finite metrics")
+    if len(rec.metrics) != 5:
+        problems.append(f"{len(rec.metrics)} training steps, not 5")
+    print(f"  resumed: start step {rec.setups[1][0]}, chunk step {rec.setups[1][1]} "
+          f"(seed {config.seed})")
+    if rec.setups[1] != (3, config.seed + 3):
+        problems.append(f"resumed at (start step, chunk step) {rec.setups[1]}, not "
+                        f"(3, {config.seed + 3})")
+    cpu_dm = DataManager(first.dataset, config.pipeline.datamanager.train_num_rays_per_batch,
+                         seed=config.seed)
+    try:
+        host = cpu_dm.next_batch()
+    finally:
+        cpu_dm.close()
+    card = rec.first_batch[id(first)]
+    same = sorted(card) == sorted(host) and all(
+        np.array_equal(card[k].numpy(), host[k]) for k in host)
+    print(f"  first batch on the card ({len(host['rgb'])} rays, {sorted(host)}) vs the CPU "
+          f"DataManager's rows: {'identical' if same else 'DIFFERENT'}")
+    if not same:
+        problems.append("the first batch on the card differs from the CPU DataManager's rows")
+    t0 = time.perf_counter()
+    chunk = first.dataset.load_chunk(config.seed)
+    print(f"  chunk load: {len(chunk)} rows from {len(first.dataset.items)} images in "
+          f"{time.perf_counter() - t0:.3f} s ({first.dataset.num_threads} threads)")
+    rays = config.pipeline.datamanager.train_num_rays_per_batch
+    steady = statistics.median(rec.seconds[1:3] + rec.seconds[4:])
+    print(f"  steady step from disk (steps 1, 2 and 4): median {steady:.4f} s "
+          f"({rays / steady:.1f} rays/s); in memory (phase 7): {memory_step_s:.4f} s "
+          f"({rays / memory_step_s:.1f} rays/s); ratio {steady / memory_step_s:.3f}")
+    # One more step from disk, profiled after an unprofiled one (which
+    # loads the first chunk and starts the prefetch of the second).
+    trainer = Trainer(dataclasses.replace(config, max_num_iterations=10))
+    trainer.setup(write_config=False)
+    try:
+        trainer.train(num_steps=1)
+        profiled = profile_device("profiled step from disk",
+                                  lambda: trainer.train(num_steps=1), "train_disk_profile.txt")
+        # Device ms from the profile, launches as the wrappers counted them
+        # (as profile_step reports a step).
+        profiled = {name: (profiled[name][0], kernels.LAUNCHES[name]) for name in KERNEL_INFO}
+        # The same steps with the loader's work taken out: every chunk is
+        # the one already loaded (staging and gathers unchanged).
+        trainer.dataset.load_chunk = lambda step: chunk
+        idle = []
+        trainer.train(num_steps=3, callback=lambda step, m: idle.append(m["step_seconds"]))
+        print(f"  steps from disk with the chunk loader idle (the same chunk each step): "
+              + ", ".join(f"{t:.4f}" for t in idle) + f" s; median of the last two "
+              f"{statistics.median(idle[1:]):.4f} s")
+    finally:
+        trainer.close()
+    return launches, profiled, problems
 
 
 def main() -> int:
@@ -2097,7 +2443,7 @@ def main() -> int:
 
     # Phase 7: train, counted.
     print("phase 7: train")
-    trainer, train_launches, recorded, _, problems = train_phase(
+    trainer, train_launches, recorded, _, problems, memory_step_s = train_phase(
         tile_trainer_config("boston-seaport", 0, "camera"), aabbs, cent, cams, KERNEL_INFO)
     if not problems:
         largest = max(recorded.values(), key=lambda rec: rec["rows"].numel())
@@ -2160,10 +2506,31 @@ def main() -> int:
         print("phase 13 FAILED:\n  " + "\n  ".join(problems + ref_problems), file=sys.stderr)
         return 1
     del trainer, trainer_ref
+    torch.cuda.empty_cache()
+
+    # Phases 14-16: the data path from disk.
+    print(f"phase 14: the JPEG codec on the card's host ({time.perf_counter() - t_start:.0f} s in)")
+    problems = codec_phase()
+    if problems:
+        print("phase 14 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+    print(f"phase 15: quality floor, trained from disk ({time.perf_counter() - t_start:.0f} s in)")
+    quality_launches, problems = quality_phase()
+    if problems:
+        print("phase 15 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+    print(f"phase 16: {DISK_METHOD} from disk through the train CLI "
+          f"({time.perf_counter() - t_start:.0f} s in)")
+    disk_launches, step_disk, problems = disk_cli_phase(memory_step_s)
+    if problems:
+        print("phase 16 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
 
     paths = {"serve": serve_launches, "train": train_launches,
-             "serve_reference": serve_ref_launches, "train_reference": train_ref_launches}
+             "serve_reference": serve_ref_launches, "train_reference": train_ref_launches,
+             "train_quality": quality_launches, "train_disk": disk_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(counts[name] for counts in paths.values()),
@@ -2176,7 +2543,8 @@ def main() -> int:
          "render_ms": render[name][0], "render_launches": render[name][1],
          "step_reference_ms": step_ref[name][0], "step_reference_launches": step_ref[name][1],
          "render_reference_ms": render_ref[name][0],
-         "render_reference_launches": render_ref[name][1]}
+         "render_reference_launches": render_ref[name][1],
+         "step_disk_ms": step_disk[name][0], "step_disk_launches": step_disk[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,26 +11,27 @@ package pulls in jax, which the GPU machine does not have:
   * HashEncodingConfig    <- presight_tpu/ops/hash_encoding.py:66-132
   * SpacingSpec           <- presight_tpu/ops/samplers.py:29-53
   * OptimizerGroupConfig  <- presight_tpu/engine/optimizers.py:25-34
-  * DataManagerConfig     <- presight_tpu/data/datamanager.py:27-36 (the
-                             field the port honours)
-  * PipelineConfig        <- presight_tpu/engine/trainer.py:46-50 (no
-                             dataparser yet)
-  * TrainerConfig         <- presight_tpu/engine/trainer.py:53-107 (the
-                             fields the port honours)
+  * DataParserConfig      <- presight_tpu/data/dataparser.py:64-78
+  * DataManagerConfig     <- presight_tpu/data/datamanager.py:27-36
+  * PipelineConfig        <- presight_tpu/engine/trainer.py:46-50
+  * TrainerConfig         <- presight_tpu/engine/trainer.py:53-111
 
-``tile_model_config`` and ``tile_trainer_config`` build a named tile's
-configs the way presight_tpu/configs/method_configs.py builds them
-(``_base_model``, ``_optimizers``, ``_tile_config``, ``_tpu_profile``).
-Parity tests hold both against each other.
+The named method registry is configs/method_configs.py and the config.yml
+reader and writer configs/config_io.py. ``tile_model_config`` and
+``tile_trainer_config`` (re-exported here) build a named tile's configs.
+Parity tests hold both against the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..data.constants import DEFAULT_MASK_SEG_CLASSES, NUSCENES_CAMERAS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,76 +287,6 @@ class NerfactoNuscMSConfig:
         return SpacingSpec("piecewise_threshold", threshold=self.piecewise_sampler_threshold)
 
 
-# method_configs.py constants: pose rescale, iterations, tiles (location ->
-# (number of tiles, number of AABB experts)).
-POSE_RESCALE_FACTOR = 0.05
-MAX_ITERATIONS = 100_000
-TILES = {
-    "boston-seaport": (8, 16),
-    "singapore-queenstown": (4, 12),
-    "singapore-onenorth": (4, 16),
-    "singapore-hollandvillage": (2, 8),
-}
-
-
-def tile_model_config(location: str, tile: int, depth: str, tpu: bool = True,
-                      max_iterations: int = MAX_ITERATIONS) -> NerfactoNuscMSConfig:
-    """Model config of ``{location}-{depth}-dino-c{tile}[-tpu]``, built as
-    method_configs.py's _base_model, _tile_config and _tpu_profile build
-    it. The tile selects centroids, not model shapes; its expert count is
-    ``TILES[location][1]``."""
-    num_tiles, _ = TILES[location]
-    if not 0 <= tile < num_tiles:
-        raise ValueError(f"{location} has tiles 0..{num_tiles - 1}, got {tile}")
-    model = NerfactoNuscMSConfig(
-        near_plane=0.1 * POSE_RESCALE_FACTOR,
-        far_plane=1000.0 * POSE_RESCALE_FACTOR,
-        piecewise_sampler_threshold=100.0 * POSE_RESCALE_FACTOR,
-        proposal_weights_anneal_max_num_iters=max_iterations // 10,
-        proposal_warmup=max_iterations // 10,
-        pose_scale_factor=POSE_RESCALE_FACTOR,
-    )
-    if depth == "monodepth":
-        model = dataclasses.replace(
-            model,
-            use_lidar_loss=False,
-            use_monodepth_loss=True,
-            expected_depth_loss_mult=0.1,
-            line_of_sight_mult=0.01,
-            monodepth_depth_upperbound=25.0,
-            line_of_sight_decay_steps=max_iterations,
-            line_of_sight_start_step=max_iterations // 20,
-            line_of_sight_end_step=max_iterations,
-            line_of_sight_max_sigma=6.0,
-            line_of_sight_min_sigma=4.0,
-            distortion_loss_mult=0.01,
-        )
-    elif depth == "camera":
-        model = dataclasses.replace(model, use_lidar_loss=False)
-    else:
-        raise ValueError(f"depth must be 'camera' or 'monodepth', got {depth!r}")
-    if not tpu:
-        return model
-    return dataclasses.replace(
-        model,
-        hash_storage="shared",
-        prop_shared_mlp=True,
-        remat=False,
-        log2_hashmap_size=17,
-        num_levels=4,
-        features_per_level=10,
-        prop_grid_res=64,
-        num_proposal_samples_per_ray=(64, 32),
-        num_nerf_samples_per_ray=48,
-        proposal_net_args_list=(
-            dict(features_per_level=4, log2_hashmap_size=16, num_levels=2,
-                 base_res=16, max_res=1024),
-            dict(features_per_level=4, log2_hashmap_size=16, num_levels=2,
-                 base_res=16, max_res=4096),
-        ),
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class OptimizerGroupConfig:
     lr: float = 1e-2
@@ -369,12 +300,37 @@ class OptimizerGroupConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataParserConfig:
+    data_dir: Path = Path("data/nuScenes")
+    location: str = "singapore-onenorth"
+    centroid_name: str = "0"
+    scene_names: Optional[Tuple[str, ...]] = None  # overrides centroid json
+    cameras: Tuple[str, ...] = NUSCENES_CAMERAS
+    train_split_fraction: float = 1.0
+    num_aabbs: int = 1
+    image_downscale_factor: float = 1.0
+    pose_scale_factor: float = 0.05
+    pose_normalize: bool = True
+    use_gt_masks: bool = False
+    depth_type: str = "none"  # lidar | monodepth | none
+    centroids_dir: Optional[Path] = None  # dir holding {location}_centroids.json
+
+
+@dataclasses.dataclass(frozen=True)
 class DataManagerConfig:
     train_num_rays_per_batch: int = 65536
+    eval_num_rays_per_batch: int = 8192
+    images_per_chunk: int = 512
+    chunk_ratio: float = 0.025
+    group_balanced: bool = True
+    load_features: bool = True
+    mask_seg_classes: Tuple[str, ...] = DEFAULT_MASK_SEG_CLASSES
+    num_threads: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
+    dataparser: DataParserConfig = DataParserConfig()
     datamanager: DataManagerConfig = DataManagerConfig()
     model: NerfactoNuscMSConfig = NerfactoNuscMSConfig()
 
@@ -385,42 +341,45 @@ def _default_optimizers() -> Dict[str, OptimizerGroupConfig]:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
+    """The JAX TrainerConfig's fields and defaults. The port's Trainer
+    refuses (NotImplementedError from setup) what it does not run yet:
+    num_devices other than 1, camera_optimizer_mode 'so3xr3' and
+    gradient_accumulation_steps above 1; zero1 matters only with more than
+    one device."""
+
+    method_name: str = "presight"
+    experiment_name: str = "default"
+    output_dir: Path = Path("outputs")
+    timestamp: str = ""
     max_num_iterations: int = 100_000
+    steps_per_save: int = 2_500
+    steps_per_eval_batch: int = 1_000
+    steps_per_eval_image: int = 5_000
     seed: int = 42
     pipeline: PipelineConfig = PipelineConfig()
     optimizers: Dict[str, OptimizerGroupConfig] = dataclasses.field(
         default_factory=_default_optimizers)
+    gradient_accumulation_steps: int = 1
     microbatch_rays: int = 4096
+    camera_optimizer_mode: str = "off"
+    num_devices: int = 1
+    zero1: bool = True
+    device_ray_store_mb: int = 512
+    vis: str = "local"
+    eval_lpips: bool = True
+    load_dir: Optional[Path] = None
+
+    def run_dir(self) -> Path:
+        ts = self.timestamp or "run"
+        return Path(self.output_dir) / self.experiment_name / self.method_name / ts
 
 
-BS_SCALE = 8
-
-
-def tile_optimizers(max_iterations: int = MAX_ITERATIONS) -> Dict[str, OptimizerGroupConfig]:
-    """method_configs._optimizers: Adam 1e-2 (eps 1e-15, wd 1e-5), 10%
-    warmup, x0.33 at 25/50/75% of the run, for both groups."""
-    common = dict(
-        lr=1e-2, eps=1e-15, weight_decay=1e-5, max_steps=max_iterations,
-        warmup_steps=max_iterations // 10,
-        milestones=(max_iterations // 4, max_iterations // 2, max_iterations * 3 // 4),
-        gamma=0.33,
-    )
-    return {"proposal_networks": OptimizerGroupConfig(**common),
-            "fields": OptimizerGroupConfig(**common)}
-
-
-def tile_trainer_config(location: str, tile: int, depth: str, tpu: bool = True,
-                        max_iterations: int = MAX_ITERATIONS) -> TrainerConfig:
-    """Trainer config of ``{location}-{depth}-dino-c{tile}[-tpu]``, built as
-    method_configs.py's _tile_config and _tpu_profile build it: 65,536 rays
-    per step (8192 x BS_SCALE); microbatches of 1024 rays on the -tpu
-    profile, 4096 otherwise."""
-    return TrainerConfig(
-        max_num_iterations=max_iterations,
-        optimizers=tile_optimizers(max_iterations),
-        microbatch_rays=1024 if tpu else 4096,
-        pipeline=PipelineConfig(
-            datamanager=DataManagerConfig(train_num_rays_per_batch=8192 * BS_SCALE),
-            model=tile_model_config(location, tile, depth, tpu=tpu,
-                                    max_iterations=max_iterations)),
-    )
+from .method_configs import (  # noqa: E402  (method_configs builds on the classes above)
+    BS_SCALE,
+    MAX_ITERATIONS,
+    POSE_RESCALE_FACTOR,
+    TILES,
+    tile_model_config,
+    tile_optimizers,
+    tile_trainer_config,
+)

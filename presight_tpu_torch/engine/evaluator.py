@@ -1,7 +1,8 @@
-"""Whole-image rendering in fixed-size ray chunks
-(presight_tpu/engine/evaluator.py ImageRenderer). The last chunk is padded
-to the full chunk size, as in JAX, so every chunk sees the same shapes and
-the batch-global clip of the expected depth matches the reference."""
+"""Whole-image evaluation (presight_tpu/engine/evaluator.py): rendering in
+fixed-size ray chunks (ImageRenderer; the last chunk is padded to the full
+chunk size, as in JAX, so every chunk sees the same shapes and the
+batch-global clip of the expected depth matches the reference), and the
+PSNR / SSIM / LPIPS and depth-RMSE metrics of rendered images."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from ..configs import NerfactoNuscMSConfig
 from ..data.cameras import CameraParams, generate_rays
 from ..models.nerfacto_ms import NerfactoNuscMS
+from ..utils import metrics as M
 
 RENDER_KEYS = ("rgb", "accumulation", "depth", "expected_depth", "semantics")
 
@@ -48,3 +50,44 @@ class ImageRenderer:
         stacked = {k: np.concatenate(v) for k, v in outs.items()}
         return {k: v.reshape(H, W, -1) if v.ndim > 1 else v.reshape(H, W)
                 for k, v in stacked.items()}
+
+
+def image_metrics(pred_rgb: np.ndarray, gt_rgb: np.ndarray,
+                  with_lpips: bool = True) -> Dict[str, float]:
+    """PSNR and SSIM, and LPIPS when asked and available."""
+    out = {"psnr": M.psnr(pred_rgb, gt_rgb), "ssim": M.ssim(pred_rgb, gt_rgb)}
+    if with_lpips:
+        fn = M.lpips_fn()
+        if fn is not None:
+            out["lpips"] = fn(pred_rgb.astype(np.float32), gt_rgb.astype(np.float32))
+    return out
+
+
+def evaluate_images(model: NerfactoNuscMS, config: NerfactoNuscMSConfig, cameras: CameraParams,
+                    items, indices=None, with_lpips: bool = True,
+                    with_depth: bool = False) -> Dict[str, float]:
+    """Mean metrics over eval images; ``cameras`` is their table, on the
+    device the model lives on. ``with_depth`` adds depth_rmse (meters)
+    over pixels with valid ground-truth depth (> 0 and under the config's
+    depth upper bound) against the rendered expected depth rescaled out of
+    pose-normalised units."""
+    renderer = ImageRenderer(config)
+    prop_grid = model.make_prop_grid()  # depends only on the weights: once
+    if indices is None:
+        indices = range(len(items))
+    all_metrics: List[Dict[str, float]] = []
+    upper = (config.lidar_depth_upperbound if config.use_lidar_loss
+             else config.monodepth_depth_upperbound)
+    for i in indices:
+        item = items[i]
+        outputs = renderer.render(model, cameras, i, item.H, item.W, prop_grid=prop_grid)
+        m = image_metrics(outputs["rgb"], item.load_image(), with_lpips)
+        if with_depth and item.depth_path is not None:
+            gt_d = item.load_depth()
+            pred_d = outputs["expected_depth"].reshape(gt_d.shape) / config.pose_scale_factor
+            mask = (gt_d > 0) & (gt_d < upper)
+            if mask.any():
+                m["depth_rmse"] = float(np.sqrt(np.mean((pred_d[mask] - gt_d[mask]) ** 2)))
+        all_metrics.append(m)
+    keys = {k for m in all_metrics for k in m}
+    return {k: float(np.mean([m[k] for m in all_metrics if k in m])) for k in keys}

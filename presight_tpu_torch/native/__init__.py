@@ -1,11 +1,12 @@
-"""ctypes binding of the streaming voxel accumulator (voxelize.cpp).
+"""ctypes bindings of the host libraries: the streaming voxel accumulator
+(voxelize.cpp, here) and the JPEG codec (jpeg.cpp, native/jpeg.py).
 
-``g++`` builds the library at first use into ``<repo>/build/native/``,
-keyed on a hash of the source, the way ``kernels.build()`` keys the CUDA
+``g++`` builds each library at first use into ``<repo>/build/native/``,
+keyed on a hash of its source, the way ``kernels.build()`` keys the CUDA
 library; nothing is written into the source tree and nothing runs at import.
 A build failure raises: the numpy ``StreamingVoxelAccumulator`` of
 prior/voxelize.py is the plain version and is chosen only by an explicit
-argument, never as a silent fallback.
+argument, never as a silent fallback; the JPEG codec has none.
 """
 
 from __future__ import annotations
@@ -25,19 +26,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libvoxelize_{digest}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build() -> Path:
-    """Compile voxelize.cpp unless the library for this exact source exists."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` unless the library for this exact source exists."""
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp)],
+    proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(source), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr[-4000:]}")

@@ -50,7 +50,9 @@ from presight_tpu_torch.data.cameras import CameraParams
 from presight_tpu_torch.data.device_store import DeviceRayStore
 from presight_tpu_torch.engine import optimizers as TOpt
 from presight_tpu_torch.engine.train_step import StepScalars, train_step
-from presight_tpu_torch.engine.trainer import BatchOrder, Trainer
+from presight_tpu_torch.data.datamanager import DataManager as TDataManager
+from presight_tpu_torch.data.dataset import PixelChunk as TPixelChunk
+from presight_tpu_torch.engine.trainer import Trainer
 from presight_tpu_torch.models import nerfacto_ms as TM
 from test_torch_slice import TINY
 
@@ -179,17 +181,31 @@ class _StubDataset:
         return self.chunk
 
 
+class _StubDatasetPort:
+    """The whole dataset as every chunk, for the port's DataManager (the
+    rule of the in-memory Trainer)."""
+
+    def __init__(self, n):
+        self.chunk = TPixelChunk({"rgb": np.zeros((n, 3), np.float32), "row": np.arange(n)})
+
+    def load_chunk(self, step):
+        return self.chunk
+
+
 def test_batch_order_matches_jax_datamanager():
+    """The port's DataManager over one in-memory chunk (Trainer.in_memory's
+    batch rule) against the JAX DataManager."""
     from presight_tpu.data.datamanager import DataManager
 
     n, bs, seed = 1000, 96, 42
     dm = DataManager(_StubDataset(n), batch_size=bs, seed=seed)
-    order = BatchOrder(n, bs, seed=seed)
+    port = TDataManager(_StubDatasetPort(n), batch_size=bs, seed=seed)
     try:
         for _ in range(25):  # two and a half chunks
-            np.testing.assert_array_equal(order.next(), dm.next_batch()["row"])
+            np.testing.assert_array_equal(port.next_batch()["row"], dm.next_batch()["row"])
     finally:
         dm.close()
+        port.close()
 
 
 def test_adam_schedule_and_update_match_optax():
@@ -267,7 +283,7 @@ def test_trainer_loss_decreases():
         max_num_iterations=30, seed=0, microbatch_rays=32,
         pipeline=TCfg.PipelineConfig(datamanager=TCfg.DataManagerConfig(64), model=model),
         optimizers={k: TCfg.OptimizerGroupConfig(**OPT) for k in ("fields", "proposal_networks")})
-    trainer = Trainer(cfg, store, cams, aabbs, cent, n, 1, device="cpu")
+    trainer = Trainer.in_memory(cfg, store, cams, aabbs, cent, n, 1, device="cpu")
     assert next(trainer.model.parameters()).device.type == "cpu"
     log = []
     trainer.train(callback=lambda step, m: log.append(m))
