@@ -111,17 +111,26 @@ outputs/chip_smoke/):
      phase 7's in-memory step; one more step from disk under
      torch.profiler (step_disk_ms, step_disk_launches; the table goes to
      outputs/chip_smoke/train_disk_profile.txt).
+ 17. serve phase 16's run directory through the port's CLIs, as a user
+     calls them, under torch's default TF32 flags and with LPIPS from random
+     weights written in the official state_dict layout: extract_priors at
+     --downscale 1, eval, render of camera 0, export pointcloud and cameras,
+     each timed; the prior pickle's schema, the metrics, every PNG decoded
+     by the port's reader, the PLY and the camera JSON; K1-K4 launched on
+     this path; extract_priors on one frame at --downscale 2 on the card
+     against the CPU (compare_priors), and LPIPS of the rendered camera
+     against its image on the card against the CPU (rtol 1e-5).
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
 all, and by path: serve, train, serve_reference, train_reference,
-train_quality, train_disk), error,
+train_quality, train_disk, serve_cli), error,
 times (ms, plain_ms and library_ms by CUDA events around one call;
 device_ms by CUDA events around ten calls queued behind a spin), bound,
 and device time (torch.profiler) and launches in one training step and in
 one 450x800 render of each profile; the last line is {"ok": true,
-"device": {...}}. Writes the prior pickles and the profile tables under
-outputs/chip_smoke/.
+"device": {...}}. Writes the prior pickles, the profile tables and phase
+17's outputs under outputs/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -1584,6 +1593,12 @@ def serve_problems(img, result, config, H, W):
             problems.append(f"render {key} not finite")
     if img["rgb"].shape != (H, W, 3) or img["semantics"].shape != (H, W, config.semantic_dim):
         problems.append(f"render shapes {img['rgb'].shape} {img['semantics'].shape}")
+    return problems + pickle_problems(result, config)
+
+
+def pickle_problems(result, config):
+    """The prior pickle's schema, finite values, not empty."""
+    problems = []
     want = {"points": (np.float32, 3), "features": (np.float16, config.semantic_dim),
             "colors": (np.float32, 3)}
     if set(result) != {"points", "features", "colors", "hits", "origin"}:
@@ -2157,7 +2172,7 @@ def disk_cli_phase(memory_step_s: float):
     DataManager's rows and the resume offsets; times the fixture, a chunk
     load and the steady step from disk beside phase 7's in-memory step;
     profiles one more step from disk. Returns (launches on the path, the
-    profiled step, problems)."""
+    profiled step, problems, the run directory)."""
     import shutil
 
     from presight_tpu_torch import kernels
@@ -2191,7 +2206,7 @@ def disk_cli_phase(memory_step_s: float):
             torch.cuda.synchronize()
             print(f"  train CLI to step {end}: exit {rc} in {time.perf_counter() - t0:.2f} s")
             if rc != 0:
-                return dict(kernels.LAUNCHES), None, [f"the train CLI exited {rc}"]
+                return dict(kernels.LAUNCHES), None, [f"the train CLI exited {rc}"], None
     launches = dict(kernels.LAUNCHES)
     print(f"  launches on the from-disk CLI path: {launches}")
     problems = [f"{name} was not launched on the from-disk CLI path"
@@ -2269,7 +2284,223 @@ def disk_cli_phase(memory_step_s: float):
               f"{statistics.median(idle[1:]):.4f} s")
     finally:
         trainer.close()
-    return launches, profiled, problems
+    return launches, profiled, problems, first.run_dir
+
+
+# Phase 17: extract_priors keeps hit points of mean density above this (the
+# CLI's default, 1.0, may keep none after a few steps).
+SERVE_DENSITY_THRESHOLD = 0.0
+# Card against CPU, extract_priors on one frame at --downscale 2: the voxel
+# counts within this share; each voxel of one side has one of the other
+# within SERVE_VOXEL_ATOL m with the same hits, but for SERVE_UNMATCHED of
+# them (a point that rounds to the other side of a voxel face, or a median
+# depth at a threshold tie, moves between voxels); on matched voxels the
+# f16 features and the colours within these.
+SERVE_COUNT_RTOL = 0.01
+SERVE_VOXEL_ATOL = 1e-3
+SERVE_UNMATCHED = 0.01
+SERVE_FEATURE_ATOL = 2e-3
+SERVE_COLOR_ATOL = 1e-3
+# LPIPS on the card against the CPU (IEEE f32 convolutions: ~1e-7; TF32
+# would give ~1e-4).
+SERVE_LPIPS_RTOL = 1e-5
+
+
+def compare_priors(card, cpu):
+    """Problems of the card's prior pickle against the CPU's (the
+    SERVE_* tolerances), and the line that reports them."""
+    from scipy.spatial import cKDTree
+
+    problems = []
+    n_card, n_cpu = len(card["points"]), len(cpu["points"])
+    if abs(n_card - n_cpu) > SERVE_COUNT_RTOL * n_cpu or not np.array_equal(card["origin"],
+                                                                             cpu["origin"]):
+        problems.append(f"voxels {n_card} on the card, {n_cpu} on the CPU; origins "
+                        f"{card['origin']} {cpu['origin']}")
+    if n_card == 0 or n_cpu == 0:
+        return problems + ["an empty pickle"], ""
+    shares, errs = [], {"point": 0.0, "feature": 0.0, "color": 0.0}
+    for a, b in ((card, cpu), (cpu, card)):
+        dist, j = cKDTree(b["points"]).query(a["points"])
+        match = (dist <= SERVE_VOXEL_ATOL) & (a["hits"] == b["hits"][j])
+        shares.append(float(match.mean()))
+        errs["point"] = max(errs["point"], float(dist[match].max(initial=0.0)))
+        errs["feature"] = max(errs["feature"], float(np.abs(
+            a["features"][match].astype(np.float32) - b["features"][j[match]].astype(np.float32)
+        ).max(initial=0.0)))
+        errs["color"] = max(errs["color"], float(np.abs(
+            a["colors"][match] - b["colors"][j[match]]).max(initial=0.0)))
+    if min(shares) < 1.0 - SERVE_UNMATCHED:
+        problems.append(f"matched voxels: {shares[0]:.4f} of the card's, {shares[1]:.4f} of "
+                        "the CPU's")
+    if errs["feature"] > SERVE_FEATURE_ATOL or errs["color"] > SERVE_COLOR_ATOL:
+        problems.append(f"matched voxels' features differ by {errs['feature']:.3e}, colours by "
+                        f"{errs['color']:.3e}")
+    return problems, (f"{n_card} voxels on the card, {n_cpu} on the CPU; matched "
+                      f"{shares[0]:.4f} of the card's, {shares[1]:.4f} of the CPU's (same hits, "
+                      f"within {SERVE_VOXEL_ATOL:g} m; at most {SERVE_UNMATCHED:g} unmatched); on "
+                      f"them points {errs['point']:.3e} m apart, features {errs['feature']:.3e} "
+                      f"(tol {SERVE_FEATURE_ATOL:g}), colours {errs['color']:.3e} (tol "
+                      f"{SERVE_COLOR_ATOL:g})")
+
+
+def serve_cli_phase(run_dir: Path, card: str):
+    """Phase 17: phase 16's run directory served on the card through the
+    port's four CLIs, as a user calls them, with torch's default TF32 flags
+    (the earlier phases turned TF32 off) and LPIPS from random weights in
+    the official state_dict layout (an .npz through $PRESIGHT_LPIPS_WEIGHTS):
+    extract_priors at --downscale 1 (frames 0 and 8, the default interval),
+    eval of every image, render of camera 0, export pointcloud and cameras,
+    each timed. Checks the prior pickle (pickle_problems), the metrics, every
+    PNG decoded back by the port's reader, the PLY and the camera JSON, and
+    that K1-K4 ran on this path; then extract_priors on one frame at
+    --downscale 2 on the card against the same CLI on the CPU
+    (compare_priors), and LPIPS of the rendered camera 0 against its image,
+    on the card against the CPU (SERVE_LPIPS_RTOL). Returns (launches on the
+    path, problems)."""
+    import os
+    import pickle
+    import shutil
+
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs.config_io import load_config
+    from presight_tpu_torch.data.dataparser import parse
+    from presight_tpu_torch.data.image_metadata import read_png
+    from presight_tpu_torch.scripts import eval as eval_cli
+    from presight_tpu_torch.scripts import export as export_cli
+    from presight_tpu_torch.scripts import extract_priors as extract_cli
+    from presight_tpu_torch.scripts import render as render_cli
+    from presight_tpu_torch.utils import lpips as L
+    from presight_tpu_torch.utils import metrics as M
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import lpips_state_dict
+
+    out = OUT_DIR / "serve_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    weights = out / "lpips_random.npz"
+    np.savez(weights, **lpips_state_dict(SEED))
+    config = load_config(run_dir / "config.yml")
+    env_before = os.environ.get("PRESIGHT_LPIPS_WEIGHTS")
+    os.environ["PRESIGHT_LPIPS_WEIGHTS"] = str(weights)
+    M._LPIPS_CACHE.clear()
+    torch.backends.cudnn.allow_tf32 = True  # torch's default; matmul's is False
+    problems, times = [], {}
+    try:
+        print(f"  TF32 flags: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+              f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; LPIPS weights "
+              f"{weights.name} (random, seed {SEED})")
+
+        def run(label, main, argv, device=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = main([str(a) for a in argv], device=device)
+            torch.cuda.synchronize()
+            times[label] = time.perf_counter() - t0
+            print(f"  {label}: exit {rc} in {times[label]:.2f} s")
+            if rc != 0:
+                problems.append(f"{label} exited {rc}")
+
+        kernels.reset_launches()
+        run("extract_priors", extract_cli.main,
+            [run_dir, "--downscale", 1, "--density-threshold", SERVE_DENSITY_THRESHOLD,
+             "--output-dir", out / "priors"])
+        run("eval", eval_cli.main, [run_dir, "--output-path", out / "metrics.json"])
+        run("render", render_cli.main, [run_dir, "--output-dir", out / "renders", "--indices", 0])
+        run("export pointcloud", export_cli.main,
+            ["pointcloud", run_dir, "--output-dir", out / "export", "--num-points", 200_000])
+        run("export cameras", export_cli.main, ["cameras", run_dir, "--output-dir", out / "export"])
+        launches = dict(kernels.LAUNCHES)
+        print(f"  launches on the serving CLI path: {launches}")
+        print(f"  CLI wall times ({card}): "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in times.items()))
+        problems += [f"{name} was not launched on the serving CLI path"
+                     for name in SERVE_KERNELS if launches[name] <= 0]
+        if problems:
+            return launches, problems
+
+        with open(out / "priors" / "extracted_priors.pkl", "rb") as f:
+            result = pickle.load(f)
+        print(f"  prior pickle: {len(result['points'])} voxels (density threshold "
+              f"{SERVE_DENSITY_THRESHOLD})")
+        problems += pickle_problems(result, config.pipeline.model)
+        metrics = json.loads((out / "metrics.json").read_text())
+        print(f"  eval metrics: {metrics}")
+        if set(metrics) != {"psnr", "ssim", "lpips"} or not all(
+                np.isfinite(v) for v in metrics.values()):
+            problems.append(f"eval metrics {metrics}")
+        items = parse(config.pipeline.dataparser, split="train").items
+        H, W = items[0].H, items[0].W
+        for name, shape in (("rgb", (H, W, 3)), ("depth", (H, W)), ("dino", (H, W, 3))):
+            img = read_png(out / "renders" / f"render_00000_{name}.png")
+            print(f"  render_00000_{name}.png: {img.dtype} {img.shape}")
+            if img.dtype != np.uint8 or img.shape != shape:
+                problems.append(f"render_00000_{name}.png decodes to {img.dtype} {img.shape}")
+        ply = (out / "export" / "point_cloud.ply").read_text().splitlines()
+        n = int(next(line for line in ply if line.startswith("element vertex")).split()[-1])
+        body = np.array([[float(v) for v in line.split()]
+                         for line in ply[ply.index("end_header") + 1:]])
+        frames = json.loads((out / "export" / "camera_poses.json").read_text())["frames"]
+        print(f"  point_cloud.ply: {n} points; camera_poses.json: {len(frames)} cameras")
+        if not (0 < n == len(body)) or not np.isfinite(body).all():
+            problems.append(f"point_cloud.ply: {n} points, {len(body)} rows")
+        if len(frames) != len(items) or np.asarray(frames[0]["camera_to_world"]).shape != (3, 4):
+            problems.append(f"camera_poses.json: {len(frames)} cameras, not {len(items)}")
+
+        # The card against the CPU: extract_priors on one frame (six cameras).
+        one_frame = ["--downscale", 2, "--interval", 1000, "--density-threshold",
+                     SERVE_DENSITY_THRESHOLD]
+        run("extract_priors, one frame, card", extract_cli.main,
+            [run_dir, *one_frame, "--output-dir", out / "frame_card"])
+        run("extract_priors, one frame, CPU", extract_cli.main,
+            [run_dir, *one_frame, "--output-dir", out / "frame_cpu"], device="cpu")
+        pickles = []
+        for name in ("frame_card", "frame_cpu"):
+            with open(out / name / "extracted_priors.pkl", "rb") as f:
+                pickles.append(pickle.load(f))
+        bad, line = compare_priors(*pickles)
+        print(f"  extract_priors card vs CPU: {line}")
+        problems += bad
+
+        # LPIPS of camera 0's render against its image, card against CPU,
+        # and the same trunk left to the TF32 flags (the hazard's size).
+        pred = read_png(out / "renders" / "render_00000_rgb.png").astype(np.float32) / 255.0
+        gt = items[0].load_image()
+        card_lpips = M.lpips_fn("cuda")(pred, gt)
+        cpu_lpips = M.lpips_fn("cpu")(pred, gt)
+        params = L.to_device(L.load_torch_state_dict(lpips_state_dict(SEED)), "cuda")
+        with torch.no_grad():
+            tf32 = float(L.distance(params, torch.from_numpy(pred).cuda(),
+                                    torch.from_numpy(np.ascontiguousarray(gt)).cuda()))
+        rel = abs(card_lpips - cpu_lpips) / abs(cpu_lpips)
+        print(f"  LPIPS of render 0 vs its image: card {card_lpips:.9g}, CPU {cpu_lpips:.9g} "
+              f"(rel {rel:.3e}, tol {SERVE_LPIPS_RTOL:g}); the trunk under TF32 {tf32:.9g} "
+              f"(rel {abs(tf32 - cpu_lpips) / abs(cpu_lpips):.3e})")
+        if not rel <= SERVE_LPIPS_RTOL:
+            problems.append(f"LPIPS on the card {card_lpips} vs the CPU {cpu_lpips}")
+        # Where eval's time goes, per image: its metrics on the host clock
+        # (LPIPS synchronised), beside eval's wall time over its images.
+        parts = {"image load": lambda: items[0].load_image(),
+                 "psnr": lambda: M.psnr(pred, gt), "ssim (float64, host)": lambda: M.ssim(pred, gt),
+                 "lpips (card)": lambda: M.lpips_fn("cuda")(pred, gt)}
+        line = []
+        for label, fn in parts.items():
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            line.append(f"{label} {time.perf_counter() - t0:.4f} s")
+        n_eval = len(parse(config.pipeline.dataparser, split="val").items) or len(items)
+        print(f"  eval per image ({H}x{W}; {times['eval'] / n_eval:.4f} s each over {n_eval} "
+              "images): " + ", ".join(line))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        if env_before is None:
+            os.environ.pop("PRESIGHT_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["PRESIGHT_LPIPS_WEIGHTS"] = env_before
+        M._LPIPS_CACHE.clear()
+    return launches, problems
 
 
 def main() -> int:
@@ -2282,7 +2513,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -2522,15 +2754,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 16: {DISK_METHOD} from disk through the train CLI "
           f"({time.perf_counter() - t_start:.0f} s in)")
-    disk_launches, step_disk, problems = disk_cli_phase(memory_step_s)
+    disk_launches, step_disk, problems, run_dir = disk_cli_phase(memory_step_s)
     if problems:
         print("phase 16 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+    print(f"phase 17: phase 16's run served through the four CLIs "
+          f"({time.perf_counter() - t_start:.0f} s in)")
+    serve_cli_launches, problems = serve_cli_phase(run_dir, card)
+    if problems:
+        print("phase 17 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
 
     paths = {"serve": serve_launches, "train": train_launches,
              "serve_reference": serve_ref_launches, "train_reference": train_ref_launches,
-             "train_quality": quality_launches, "train_disk": disk_launches}
+             "train_quality": quality_launches, "train_disk": disk_launches,
+             "serve_cli": serve_cli_launches}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(counts[name] for counts in paths.values()),

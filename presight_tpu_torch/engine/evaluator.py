@@ -25,19 +25,14 @@ class ImageRenderer:
         self.chunk = chunk or config.eval_num_rays_per_chunk
 
     @torch.no_grad()
-    def render(self, model: NerfactoNuscMS, cameras: CameraParams, camera_idx: int,
-               H: int, W: int, prop_grid: Optional[torch.Tensor] = None
-               ) -> Dict[str, np.ndarray]:
-        """Render camera ``camera_idx`` at H x W; ``cameras`` and the model
-        live on the device the render runs on."""
+    def render_rays(self, model: NerfactoNuscMS, cameras: CameraParams, ray_index: np.ndarray,
+                    prop_grid: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+        """Eval-mode outputs (RENDER_KEYS) of the rays ``ray_index`` (N, 3)
+        int32 rows of (camera, row, col), flat on the host; ``cameras`` and
+        the model live on the device the render runs on."""
         if prop_grid is None:
             prop_grid = model.make_prop_grid()
         device = cameras.c2w.device
-        rows, cols = np.mgrid[0:H, 0:W]
-        ray_index = np.stack(
-            [np.full(H * W, camera_idx, np.int32),
-             rows.reshape(-1).astype(np.int32),
-             cols.reshape(-1).astype(np.int32)], axis=-1)
         outs: Dict[str, List[np.ndarray]] = {}
         for s in range(0, len(ray_index), self.chunk):
             idx = ray_index[s:s + self.chunk]
@@ -47,17 +42,29 @@ class ImageRenderer:
             for k in RENDER_KEYS:
                 if k in res:
                     outs.setdefault(k, []).append(res[k][: len(idx)].cpu().numpy())
-        stacked = {k: np.concatenate(v) for k, v in outs.items()}
+        return {k: np.concatenate(v) for k, v in outs.items()}
+
+    def render(self, model: NerfactoNuscMS, cameras: CameraParams, camera_idx: int,
+               H: int, W: int, prop_grid: Optional[torch.Tensor] = None
+               ) -> Dict[str, np.ndarray]:
+        """Render camera ``camera_idx`` at H x W."""
+        rows, cols = np.mgrid[0:H, 0:W]
+        ray_index = np.stack(
+            [np.full(H * W, camera_idx, np.int32),
+             rows.reshape(-1).astype(np.int32),
+             cols.reshape(-1).astype(np.int32)], axis=-1)
+        flat = self.render_rays(model, cameras, ray_index, prop_grid)
         return {k: v.reshape(H, W, -1) if v.ndim > 1 else v.reshape(H, W)
-                for k, v in stacked.items()}
+                for k, v in flat.items()}
 
 
-def image_metrics(pred_rgb: np.ndarray, gt_rgb: np.ndarray,
-                  with_lpips: bool = True) -> Dict[str, float]:
-    """PSNR and SSIM, and LPIPS when asked and available."""
+def image_metrics(pred_rgb: np.ndarray, gt_rgb: np.ndarray, with_lpips: bool = True,
+                  device=None) -> Dict[str, float]:
+    """PSNR and SSIM, and LPIPS (on ``device``, the CUDA card unless the
+    caller passes another) when asked and available."""
     out = {"psnr": M.psnr(pred_rgb, gt_rgb), "ssim": M.ssim(pred_rgb, gt_rgb)}
     if with_lpips:
-        fn = M.lpips_fn()
+        fn = M.lpips_fn(device)
         if fn is not None:
             out["lpips"] = fn(pred_rgb.astype(np.float32), gt_rgb.astype(np.float32))
     return out
@@ -81,7 +88,8 @@ def evaluate_images(model: NerfactoNuscMS, config: NerfactoNuscMSConfig, cameras
     for i in indices:
         item = items[i]
         outputs = renderer.render(model, cameras, i, item.H, item.W, prop_grid=prop_grid)
-        m = image_metrics(outputs["rgb"], item.load_image(), with_lpips)
+        m = image_metrics(outputs["rgb"], item.load_image(), with_lpips,
+                          device=cameras.c2w.device)
         if with_depth and item.depth_path is not None:
             gt_d = item.load_depth()
             pred_d = outputs["expected_depth"].reshape(gt_d.shape) / config.pose_scale_factor

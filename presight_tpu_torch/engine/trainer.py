@@ -104,8 +104,9 @@ class Trainer:
         if ndev == 0:
             ndev = torch.cuda.device_count() if self.device.type == "cuda" else 1
         if ndev != 1:
-            raise NotImplementedError(f"num_devices={cfg.num_devices}: the port trains on one "
-                                      "device (multi-GPU is not ported yet)")
+            raise NotImplementedError(f"num_devices={cfg.num_devices}: the port runs on one "
+                                      "device (multi-GPU is not ported yet: ROADMAP Queue 1 "
+                                      "item 7)")
         if cfg.camera_optimizer_mode == "so3xr3":
             raise NotImplementedError("camera_optimizer_mode='so3xr3' is not ported yet")
         if cfg.camera_optimizer_mode != "off":
@@ -334,7 +335,7 @@ class Trainer:
         outputs = ImageRenderer(self.model_config).render(
             self.model, self.eval_cameras, idx, item.H, item.W, prop_grid=self.prop_grid)
         metrics = image_metrics(outputs["rgb"], item.load_image(),
-                                with_lpips=self.config.eval_lpips)
+                                with_lpips=self.config.eval_lpips, device=self.device)
         self.writer.announce(f"eval image {idx}",
                              {f"eval_{k}": v for k, v in metrics.items()}, step)
 
@@ -347,13 +348,17 @@ class Trainer:
             self.writer.close()
 
 
-def eval_setup(config_path: Path, device=None) -> Tuple[TrainerConfig, Trainer]:
+def eval_setup(config_path: Path, num_devices: Optional[int] = None,
+               device=None) -> Tuple[TrainerConfig, Trainer]:
     """Rebuild a trained run from its config.yml and load its latest
-    checkpoint; the run's config.yml is left as it is."""
+    checkpoint; the run's config.yml is left as it is. ``num_devices``
+    overrides the run's (setup refuses any width but one)."""
     config_path = Path(config_path)
     config: TrainerConfig = load_config(config_path)
     run_dir = config_path.parent
     config = dataclasses.replace(config, load_dir=run_dir)
+    if num_devices is not None:
+        config = dataclasses.replace(config, num_devices=num_devices)
     trainer = Trainer(config, device=device)
     trainer.setup(run_dir=run_dir, write_config=False)
     return config, trainer

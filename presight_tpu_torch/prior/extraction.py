@@ -26,6 +26,7 @@ import torch
 
 from ..data.cameras import CameraParams, generate_rays
 from ..models.nerfacto_ms import NerfactoNuscMS
+from ..utils.colormaps import apply_feature_colormap
 from .voxelize import hit_quantile_filter, make_streaming_accumulator
 
 CAMERAS_PER_FRAME = 6
@@ -58,18 +59,6 @@ def _nearest_resize(arr: np.ndarray, h: int, w: int) -> np.ndarray:
     cols = np.clip(np.round((np.arange(w) + 0.5) * arr.shape[1] / w - 0.5), 0,
                    arr.shape[1] - 1).astype(np.int64)
     return arr[rows][:, cols]
-
-
-def apply_feature_colormap(features: np.ndarray, dino_to_rgb: Dict) -> np.ndarray:
-    """Features (..., D) -> rgb (..., 3) in [0, 1] by the stored PCA
-    reduction and per-channel min/max."""
-    red = np.asarray(dino_to_rgb["reduction_matrix"], np.float32)
-    rgb_min = np.asarray(dino_to_rgb["rgb_min"], np.float32)
-    rgb_max = np.asarray(dino_to_rgb["rgb_max"], np.float32)
-    mean = np.asarray(dino_to_rgb["mean"], np.float32)
-    img = (features.astype(np.float32) - mean) @ red
-    img = (img - rgb_min) / (rgb_max - rgb_min)
-    return np.clip(img, 0.0, 1.0)
 
 
 @torch.no_grad()

@@ -1,18 +1,14 @@
 """Image metrics (presight_tpu/utils/metrics.py): PSNR and SSIM (the
 torchmetrics defaults: gaussian kernel 11, sigma 1.5, k1 0.01, k2 0.03,
-mean over the valid window positions), in float64 on the host.
-
-LPIPS needs a pretrained network that the port does not have yet:
-``lpips_fn`` warns loudly once and returns None, as the JAX package does
-when no weights are present, and raises NotImplementedError when
-``$PRESIGHT_LPIPS_WEIGHTS`` names weights, rather than ignoring them.
+mean over the valid window positions), in float64 on the host, and the
+LPIPS scorer (utils/lpips.py) with weights from ``$PRESIGHT_LPIPS_WEIGHTS``.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,21 +49,53 @@ def ssim(pred, gt, data_range: float = 1.0, kernel_size: int = 11, sigma: float 
     return float(torch.mean(num / den))
 
 
-_LPIPS_CACHE: Dict[str, Optional[Callable]] = {}
+_LPIPS_CACHE: Dict[Tuple[str, str], Optional[Callable]] = {}
 
 
-def lpips_fn() -> Optional[Callable[[np.ndarray, np.ndarray], float]]:
-    """LPIPS scorer, or None (warned once) while the port has no network."""
+def _read_lpips_state(path: str) -> Dict:
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return dict(z)
+    return torch.load(path, map_location="cpu")
+
+
+def lpips_fn(device=None) -> Optional[Callable[[np.ndarray, np.ndarray], float]]:
+    """LPIPS scorer ``(pred, gt) HxWx3 float [0, 1] -> float`` on ``device``
+    (the CUDA card unless the caller passes another), or None.
+
+    The weights come from the file ``$PRESIGHT_LPIPS_WEIGHTS`` names: a torch
+    LPIPS state_dict saved as an ``.npz`` of numpy arrays, or any other file
+    ``torch.load`` reads. A named file that cannot be loaded raises (the JAX
+    package falls through to torchmetrics, which the port does not have).
+    With no file named, warns once and returns None: LPIPS is then absent
+    from the metrics, as in the JAX package without weights."""
+    device = torch.device(device if device is not None else "cuda")
     path = os.environ.get("PRESIGHT_LPIPS_WEIGHTS", "")
-    if path:
-        raise NotImplementedError(
-            f"PRESIGHT_LPIPS_WEIGHTS={path!r}: the port has no LPIPS network yet; unset it "
-            "or set eval_lpips False")
-    if "fn" not in _LPIPS_CACHE:
+    key = (path, str(device) if path else "")
+    if key in _LPIPS_CACHE:
+        return _LPIPS_CACHE[key]
+    if not path:
         warnings.warn(
-            "LPIPS requested but the port has NO perceptual network: LPIPS will be ABSENT "
-            "from eval metrics this run (set eval_lpips False to silence this).",
+            "LPIPS requested but NO perceptual weights are available: set "
+            "$PRESIGHT_LPIPS_WEIGHTS to a torch LPIPS state_dict (.npz/.pt). LPIPS will be "
+            "ABSENT from eval metrics this run.",
             stacklevel=2,
         )
-        _LPIPS_CACHE["fn"] = None
-    return _LPIPS_CACHE["fn"]
+        _LPIPS_CACHE[key] = None
+        return None
+    from . import lpips as L
+
+    try:
+        params = L.to_device(L.load_torch_state_dict(_read_lpips_state(path)), device)
+    except Exception as e:
+        e.add_note(f"while loading the LPIPS weights $PRESIGHT_LPIPS_WEIGHTS={path!r}")
+        raise
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    def fn(pred: np.ndarray, gt: np.ndarray) -> float:
+        return float(L.lpips(params, put(pred), put(gt)))
+
+    _LPIPS_CACHE[key] = fn
+    return fn

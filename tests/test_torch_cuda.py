@@ -818,3 +818,58 @@ def test_train_step_kernel_path_matches_plain_path(cuda_model):
     assert len(g_gpu) == len(g_cpu)
     for a, b in zip(g_gpu, g_cpu):
         assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-3
+
+
+def lpips_state_dict(seed: int, prefix: str = "") -> dict:
+    """Random LPIPS-VGG weights from a numpy seed in the official ``lpips``
+    package's state_dict layout (torchvision's vgg16.features numbering in
+    ``net.sliceK.<i>``, the heads as ``linK.model.1.weight`` (1, C, 1, 1),
+    the scaling layer's buffers); ``prefix="net."`` gives torchmetrics'."""
+    rng = np.random.RandomState(seed)
+    state = {f"{prefix}scaling_layer.shift": np.array([-0.030, -0.088, -0.188], np.float32
+                                                      ).reshape(1, 3, 1, 1),
+             f"{prefix}scaling_layer.scale": np.array([0.458, 0.448, 0.450], np.float32
+                                                      ).reshape(1, 3, 1, 1)}
+    seq, c_in = 0, 3
+    for s, (c_out, n) in enumerate(((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)), 1):
+        if s > 1:
+            seq += 1  # the max pool's slot
+        for _ in range(n):
+            state[f"{prefix}net.slice{s}.{seq}.weight"] = (
+                rng.randn(c_out, c_in, 3, 3) / np.sqrt(9 * c_in)).astype(np.float32)
+            state[f"{prefix}net.slice{s}.{seq}.bias"] = (rng.randn(c_out) * 0.01).astype(
+                np.float32)
+            seq += 2  # the conv and its ReLU
+            c_in = c_out
+        state[f"{prefix}lin{s - 1}.model.1.weight"] = (
+            np.abs(rng.randn(1, c_out, 1, 1)) * 0.1).astype(np.float32)
+    return state
+
+
+def test_lpips_on_the_card_matches_the_cpu_under_default_tf32_flags():
+    """LPIPS convolves in IEEE f32 on the card whatever the process's TF32
+    flags: under torch's defaults (cuDNN allowed TF32) it is within rtol
+    1e-5 of the CPU on a 180x320 pair (IEEE on the card: ~1e-7), while the
+    same trunk left to the default flags is not (TF32: ~1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.utils import lpips as L
+
+    before = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "tf32"  # torch's default for cuDNN convolutions
+    try:
+        params = L.load_torch_state_dict(lpips_state_dict(0))
+        on_card = L.to_device(params, "cuda")
+        rng = np.random.RandomState(1)
+        a = rng.rand(180, 320, 3).astype(np.float32)
+        b = np.clip(a + 0.1 * rng.randn(180, 320, 3), 0, 1).astype(np.float32)
+        cpu = float(L.lpips(params, torch.from_numpy(a), torch.from_numpy(b)))
+        ga, gb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        card = float(L.lpips(on_card, ga, gb))
+        with torch.no_grad():
+            tf32 = float(L.distance(on_card, ga, gb))
+        assert torch.backends.cudnn.conv.fp32_precision == "tf32"  # restored
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = before
+    np.testing.assert_allclose(card, cpu, rtol=1e-5)
+    assert abs(tf32 - cpu) > 1e-5 * cpu, "the TF32 hazard did not show: the test has no teeth"

@@ -1,8 +1,8 @@
 """The port's image metrics (presight_tpu_torch/utils/metrics.py) against
 the JAX package's on random images: PSNR and SSIM within rtol 1e-5 (the
 port sums in float64, JAX in float32 with HIGHEST-precision convolutions);
-LPIPS absent (warned once) without a network, and refused when weights are
-named."""
+LPIPS absent (warned once) without weights, and an error when the weights
+named cannot be loaded (tests/test_torch_lpips.py holds the scorer)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,5 +30,5 @@ def test_lpips_absent_or_refused(monkeypatch):
         assert TM.lpips_fn() is None
     assert TM.lpips_fn() is None  # warned once
     monkeypatch.setenv("PRESIGHT_LPIPS_WEIGHTS", "/nonexistent/lpips.npz")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         TM.lpips_fn()
