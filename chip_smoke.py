@@ -120,6 +120,28 @@ outputs/chip_smoke/):
      this path; extract_priors on one frame at --downscale 2 on the card
      against the CPU (compare_priors), and LPIPS of the rendered camera
      against its image on the card against the CPU (rtol 1e-5).
+ 18. stage-3 occupancy serving: BEVDet-Occ at the full width of
+     bevdet-occ-r50d-8x4-24e_wcamprior_randomdrop (ResNet-50 + CustomFPN,
+     LSS with stereo and temporal align, 88 depth bins, a 200x200x16 grid,
+     voxel prior fusion, CustomResNet3D + LSSFPN3D, 18 classes) with random
+     weights from a seed, on six 256x704 cameras of a nuScenes-like rig
+     (occ_rig: yaw 0, +-55, +-110 and 180 degrees, horizontal at 1.5 m) and
+     priors from a dense synthetic city-prior pickle cropped and voxelized
+     to the 20,000-voxel cap. Frame 1 (no history), then frame 2 (frame 1's
+     stereo features, an ego motion, a seeded previous BEV), counted: S1
+     (bev_pool_fwd) and S2 (stereo_cost_volume_fwd) launched; shapes,
+     finite values; frame 2 against the same frame with S1's and S2's plain
+     versions on the card (OCC_* tolerances, argmax agreement); S1 and S2
+     checked and timed on frame 2's recorded inputs (S1's voxel set by
+     points per voxel; S2's bias mask exactly, costs and softmax), beside
+     their bounds (S2's from the corners this grid puts inside) and S1's
+     index_add_; per-frame ms (median of 5), peak memory and a profiled
+     frame 2 (frame_ms, frame_launches); phase 17's extracted_priors.pkl
+     through CityPriors and VoxelizePriorPoints into one forward; the
+     port's train_occ --eval-ckpt on a checkpoint in the JAX CLI's schema
+     written through the inverse bridge, over 2 npz samples with priors.
+     ``python3 chip_smoke.py --occupancy-only`` runs phases 1, 2 and 18
+     alone (the synthetic pickle standing in for phase 17's).
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
@@ -128,7 +150,9 @@ train_quality, train_disk, serve_cli), error,
 times (ms, plain_ms and library_ms by CUDA events around one call;
 device_ms by CUDA events around ten calls queued behind a spin), bound,
 and device time (torch.profiler) and launches in one training step and in
-one 450x800 render of each profile; the last line is {"ok": true,
+one 450x800 render of each profile, and for S1 and S2 their launches on
+phase 18's frames (serve_occ) and CLI (serve_occ_cli) and their device time
+in a profiled frame (frame_ms, frame_launches); the last line is {"ok": true,
 "device": {...}}. Writes the prior pickles, the profile tables and phase
 17's outputs under outputs/chip_smoke/.
 """
@@ -182,6 +206,16 @@ KERNEL_GLOBALS = {
                        "mlp_blocks_bwd_reduce_kernel"),
     "volume_render_bwd": ("volume_render_bwd_kernel",),
     "sorted_accum": ("sorted_accum_tiles", "sorted_accum_carry"),
+    "bev_pool_fwd": ("bev_pool_sum_kernel", "bev_pool_ranks_kernel", "bev_pool_starts_kernel"),
+    "stereo_cost_volume_fwd": ("stereo_cost_volume_kernel",),
+}
+# Stage 3 (occupancy serving, phase 18): hand kernels for the JAX package's
+# XLA stand-ins of the reference's own CUDA kernels (no TPU kernel).
+OCC_KERNEL_INFO = {
+    "bev_pool_fwd": ("presight_tpu_torch/csrc/bev_pool.cu",
+                     "presight_tpu/occupancy/bev_pool.py:29"),
+    "stereo_cost_volume_fwd": ("presight_tpu_torch/csrc/stereo_cost.cu",
+                               "presight_tpu/occupancy/view_transformer.py:168"),
 }
 SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
                  "prop_grid_density_fwd")
@@ -352,7 +386,7 @@ class Checker:
     and reported, and makes the run fail at the end of the phase."""
 
     def __init__(self):
-        self.errors = {name: 0.0 for name in KERNEL_INFO}
+        self.errors = {name: 0.0 for name in [*KERNEL_INFO, *OCC_KERNEL_INFO]}
         self.times = {}
         self.device = {}
         self.library = {}
@@ -1309,11 +1343,12 @@ def profile_step(trainer, label, out_name):
     return {name: (step_profile[name][0], step_launches[name]) for name in KERNEL_INFO}, problems
 
 
-def profile_device(label, fn, out_name, tries: int = 5):
+def profile_device(label, fn, out_name, tries: int = 5, names=tuple(KERNEL_INFO)):
     """fn() in a padded_profile session:
     the device's busy time and idle share of the traced wall time; the
-    device time and kernel launches of each kernel of KERNEL_INFO (by its
-    __global__ names, KERNEL_GLOBALS) and of memsets; the device time of the
+    device time and kernel launches of each kernel of ``names`` (stage 2's
+    KERNEL_INFO by default; by its __global__ names, KERNEL_GLOBALS) and of
+    memsets; the device time of the
     hash backward's and AccumulateGrad's autograd nodes (the kernels they
     launch); and the table of device time by op (written to OUT_DIR /
     out_name). Where the profiler lost events -- some kernel's main
@@ -1332,8 +1367,7 @@ def profile_device(label, fn, out_name, tries: int = 5):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = device_of(prof)
-        mains = {name: sum(KERNEL_GLOBALS[name][0] in e.name for e in events)
-                 for name in KERNEL_INFO}
+        mains = {name: sum(KERNEL_GLOBALS[name][0] in e.name for e in events) for name in names}
         lost = {name: (n, kernels.LAUNCHES[name]) for name, n in mains.items()
                 if n != kernels.LAUNCHES[name]}
         if not lost:
@@ -1352,9 +1386,9 @@ def profile_device(label, fn, out_name, tries: int = 5):
     print(f"  {label}: wall {wall:.3f} s (traced), device busy {busy / 1e6:.4f} s, "
           f"idle share {1.0 - busy / 1e6 / wall:.3f}; least launch-to-start lead "
           f"{launch_lead_us(prof)} us")
-    by_kernel = {name: [0.0, 0] for name in [*KERNEL_INFO, "memset"]}
+    by_kernel = {name: [0.0, 0] for name in [*names, "memset"]}
     for e in events:
-        name = next((k for k, names in KERNEL_GLOBALS.items() if any(g in e.name for g in names)),
+        name = next((k for k in names if any(g in e.name for g in KERNEL_GLOBALS[k])),
                     "memset" if "Memset" in e.name else None)
         if name is not None:
             by_kernel[name][0] += (e.time_range.end - e.time_range.start) / 1e3
@@ -2503,6 +2537,374 @@ def serve_cli_phase(run_dir: Path, card: str):
     return launches, problems
 
 
+OCC_CONFIG = "bevdet-occ-r50d-8x4-24e_wcamprior_randomdrop"
+OCC_CITY = "boston-seaport"
+# nuScenes CAM_FRONT intrinsics, and the reference's image pipeline for
+# 1600x900: resize by 704 / 1600, crop the top 140 rows (256x704 left).
+OCC_INTRINSICS = ((1266.417, 0.0, 816.267), (0.0, 1266.417, 491.507), (0.0, 0.0, 1.0))
+OCC_RESIZE, OCC_CROP_TOP = 0.44, 140.0
+OCC_YAWS_DEG = (0.0, -55.0, 55.0, -110.0, 110.0, 180.0)
+OCC_EGO_MOTION = (1.0, 0.05, 2.0)  # metres forward, left, degrees of yaw between frames
+OCC_PRIOR_POINTS = 400_000
+# Frame 2 with the kernels against frame 2 with their plain versions, on
+# the card: the same weights and inputs; S1 sums in point order against
+# index_add_'s atomics and S2 over channels in another order, through a
+# 50-layer network in IEEE f32.
+OCC_LOGIT_ATOL, OCC_LOGIT_RTOL = 1e-4, 1e-4
+OCC_DEPTH_ATOL = 1e-4
+OCC_ARGMAX_AGREE = 0.999
+# S1 against its plain version on the recorded inputs: a voxel's sum of up
+# to hundreds of products in another order.
+S1_ATOL, S1_RTOL = 1e-5, 1e-4
+# S2: costs are sums of 256 |differences| (tens), taken in another order;
+# the softmax moves by its value times the cost's error.
+S2_COST_ATOL, S2_COST_RTOL, S2_PROB_ATOL = 1e-4, 1e-5, 1e-5
+
+
+def occ_rig(cfg, device):
+    """A nuScenes-like rig at batch 1: six cameras at yaw 0, +-55, +-110 and
+    180 degrees, optical axes horizontal, 1.5 m above the ground, the
+    intrinsics and image augmentation of a 1600x900 camera cut to 256x704,
+    and the two frames' ego motion (OCC_EGO_MOTION). Returns (geometry
+    tensors, k2s_sensor, prev2curr)."""
+    n = len(OCC_YAWS_DEG)
+    cam_to_ego = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)  # x right, y down, z ahead
+    s2e = np.tile(np.eye(4), (1, n, 1, 1))
+    for i, yaw in enumerate(np.radians(OCC_YAWS_DEG)):
+        rz = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        s2e[0, i, :3, :3] = rz @ cam_to_ego
+        s2e[0, i, :3, 3] = [0.8 * np.cos(yaw) + 0.5, 0.5 * np.sin(yaw), 1.5]
+    intr = np.tile(np.asarray(OCC_INTRINSICS), (1, n, 1, 1))
+    post_rots = np.tile(np.diag([OCC_RESIZE, OCC_RESIZE, 1.0]), (1, n, 1, 1))
+    post_trans = np.tile([0.0, -OCC_CROP_TOP, 0.0], (1, n, 1))
+    bda = np.eye(4)[None]
+    fwd, left, yaw = OCC_EGO_MOTION
+    a = np.radians(yaw)
+    curr_in_prev = np.eye(4)  # the current ego pose in the previous ego frame
+    curr_in_prev[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    curr_in_prev[:2, 3] = [fwd, left]
+    k2s = np.stack([np.linalg.inv(s2e[0, i]) @ curr_in_prev @ s2e[0, i] for i in range(n)])[None]
+    prev_to_curr = np.linalg.inv(curr_in_prev)
+    p2c = np.eye(3)
+    p2c[:2, :2], p2c[:2, 2] = prev_to_curr[:2, :2], prev_to_curr[:2, 3]
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
+    return [t(x) for x in (s2e, intr, post_rots, post_trans, bda)], t(k2s), t(p2c[None])
+
+
+def write_city_prior(root: Path, rng, centre):
+    """A dense synthetic city-prior pickle in the extraction schema (points
+    f32 in nerfstudio's x/y-negated frame minus the origin, features f16,
+    colours f32, hits, origin) over a 100 x 100 x 9 m block around
+    ``centre``: dense enough that the ego crop fills the 20,000-voxel cap.
+    Written to <root>/camera_priors/<city>/<city>-c0.pkl."""
+    import pickle
+
+    n = OCC_PRIOR_POINTS
+    origin = np.array([12.5, -7.25, 0.0], np.float32)
+    world = rng.uniform([-50, -50, -2.5], [50, 50, 6.5], (n, 3)) + np.asarray(centre)
+    points = (world * [-1, -1, 1] - origin).astype(np.float32)  # CityPriors adds origin, negates x/y
+    out = root / "camera_priors" / OCC_CITY / f"{OCC_CITY}-c0.pkl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "wb") as f:
+        pickle.dump({"points": points, "features": rng.randn(n, 64).astype(np.float16),
+                     "colors": rng.rand(n, 3).astype(np.float32),
+                     "hits": rng.randint(1, 50, n).astype(np.int64), "origin": origin}, f)
+    return out
+
+
+def occ_priors(root: Path, cfg, translation, device, label):
+    """CityPriors + VoxelizePriorPoints (first-come, C++) of the pickle under
+    ``root`` around the ego pose (translation, no rotation), padded to
+    max_voxels: the model's prior inputs on ``device``."""
+    from presight_tpu_torch.prior.consume import CityPriors, VoxelizePriorPoints, pad_prior_voxels
+
+    t0 = time.perf_counter()
+    priors = CityPriors(str(root), {OCC_CITY: 1}, cfg.prior_pc_range)
+    pts = priors.get_prior_points(OCC_CITY, translation, [1.0, 0.0, 0.0, 0.0])
+    voxelizer = VoxelizePriorPoints(pc_range=cfg.prior_pc_range, voxel_size=cfg.prior_voxel_size)
+    vox = voxelizer(pts, rng=np.random.RandomState(SEED))
+    padded = pad_prior_voxels([vox], pad_to=voxelizer.max_voxels)
+    print(f"  priors ({label}): {len(priors.priors[OCC_CITY])} points loaded, {len(pts)} in the "
+          f"crop, {len(vox['prior_voxels'])} voxels (cap {voxelizer.max_voxels}) in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return ({k: torch.as_tensor(v, device=device) for k, v in padded.items()},
+            len(vox["prior_voxels"]))
+
+
+def s2_bound(grid, BN, Hs, Ws, C, D):
+    """S2's least time: the bytes (prev and curr once, the grid, the output)
+    against the operations this grid needs (per (pixel, bin) and channel: a
+    blend of the k corners inside, 2k - 1, and |difference| summed, 3)."""
+    H, W = Hs, Ws
+    x = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+    y = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    ins = 0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            ins = ins + ((xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)).long()
+    flops = float(((2 * ins - 1).clamp_min(0) + 3).sum()) * C
+    nbytes = 4.0 * (2 * BN * Hs * Ws * C + grid.numel() + BN * Hs * Ws * D)
+    return bound(nbytes, flops), flops, int(ins.sum())
+
+
+@torch.no_grad()
+def occupancy_phase(chk: Checker, card: str, stage2_pickle):
+    """Phase 18: BEVDet-Occ serving at the reference width (see the module
+    docstring). Returns (launches on the main path, launches on the CLI
+    path, {kernel: (device ms, launches) of a profiled frame}, problems)."""
+    import pickle
+    import shutil
+
+    from presight_tpu_torch import bridge, kernels
+    from presight_tpu_torch.configs.stage3_configs import occ_configs
+    from presight_tpu_torch.models.layers import init_weights
+    from presight_tpu_torch.occupancy import BEVDetOcc
+    from presight_tpu_torch.occupancy import bev_pool as PB
+    from presight_tpu_torch.occupancy import view_transformer as PV
+    from presight_tpu_torch.scripts import train_occ
+
+    problems = []
+    out = OUT_DIR / "occupancy"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    dev = torch.device("cuda")
+    cfg = occ_configs[OCC_CONFIG]()
+    t0 = time.perf_counter()
+    model = init_weights(BEVDetOcc(cfg, device=dev), torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"  {OCC_CONFIG}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, "
+          f"init {time.perf_counter() - t0:.2f} s; input 6 x 256 x 704, grid "
+          f"{cfg.grid_size()} at 0.4 m, 88 depth bins, prior grid 200 x 200 x 20")
+    geo, k2s, p2c = occ_rig(cfg, dev)
+    rng = np.random.RandomState(SEED)
+    H, W = cfg.input_size
+    imgs = [torch.as_tensor(rng.rand(1, 6, 3, H, W).astype(np.float32), device=dev)
+            for _ in range(2)]
+    gx, gy, gz = cfg.grid_size()
+    prev_bev = torch.as_tensor(rng.randn(1, cfg.view_out_channels, gz, gy, gx).astype(np.float32),
+                               device=dev)
+    ego = [1200.0, 850.0, 0.0]  # the ego's translation in the city frame
+    write_city_prior(out / "synthetic", rng, ego)
+    priors, n_vox = occ_priors(out / "synthetic", cfg, ego, dev, "synthetic city")
+    if n_vox < 20000:
+        problems.append(f"the synthetic prior crop gave {n_vox} voxels, not the cap")
+
+    def frame1(plain=False):
+        return model(imgs[0], *geo, **priors, k2s_sensor=k2s, plain=plain)
+
+    def frame2(stereo, plain=False):
+        return model(imgs[1], *geo, **priors, prev_bev=prev_bev, prev2curr=p2c,
+                     prev_stereo_feat=stereo, k2s_sensor=k2s, plain=plain)
+
+    # The main path, counted: frame 1 (no history), then frame 2 (frame 1's
+    # stereo features, the ego motion, a seeded previous BEV).
+    specs = {"bev_pool": (PV, "bev_pool_v2", lambda *a: True, 1),
+             "stereo": (PV, "stereo_cost_volume", lambda *a: True, 0)}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recording_calls(specs) as rec:
+        occ1, depth1, stereo1 = frame1()
+        occ2, depth2, stereo2 = frame2(stereo1)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(f"  frames 1 and 2 (first run): {t_first:.3f} s; launches "
+          f"{ {k: launches[k] for k in OCC_KERNEL_INFO} }")
+    for name in OCC_KERNEL_INFO:
+        if launches[name] <= 0:
+            problems.append(f"{name} was not launched on the occupancy path")
+    shapes = {"occ": (tuple(occ2.shape), (1, gx, gy, gz, 18)),
+              "depth": (tuple(depth2.shape), (6, 88, 16, 44)),
+              "stereo": (tuple(stereo2.shape), (1, 6, 64, 176, 256))}
+    for key, (got, want) in shapes.items():
+        if got != want:
+            problems.append(f"{key} has shape {got}, not {want}")
+    for key, t in (("occ 1", occ1), ("depth 1", depth1), ("occ 2", occ2), ("depth 2", depth2),
+                   ("stereo 2", stereo2)):
+        if not bool(torch.isfinite(t).all()):
+            problems.append(f"{key} is not finite")
+    sums = depth2.sum(1)
+    if float((sums - 1).abs().max()) > 1e-4:
+        problems.append("depth does not sum to 1 over the bins")
+    print(f"  occ logits: mean {float(occ2.mean()):.4f} std {float(occ2.std()):.4f}; classes "
+          f"predicted {int(occ2.argmax(-1).unique().numel())}; frame 2 - frame 1 max "
+          f"{float((occ2 - occ1).abs().max()):.4e}")
+
+    # S1's inputs: the share of the frustum points in the grid.
+    depth_in, feat_in, coor_in = rec["bev_pool"][:3]
+    lb, iv = rec["bev_pool"][3], rec["bev_pool"][4]
+    ranks = PB.voxel_ranks(coor_in, lb, iv, (gx, gy, gz))
+    inside = int((ranks < gx * gy * gz).sum())
+    occupied = int(ranks[ranks < gx * gy * gz].unique().numel())
+    print(f"  rig: {inside} of {ranks.numel()} frustum points in the grid "
+          f"({inside / ranks.numel():.4f}), {occupied} voxels occupied")
+    if inside < ranks.numel() // 4:
+        problems.append(f"only {inside} frustum points land in the grid")
+
+    # Frame 2 with the plain versions on the card.
+    occ_p, depth_p, _ = frame2(stereo1, plain=True)
+    torch.cuda.synchronize()
+    err = (occ2 - occ_p).abs()
+    bad = int((err > OCC_LOGIT_ATOL + OCC_LOGIT_RTOL * occ_p.abs()).sum())
+    derr = float((depth2 - depth_p).abs().max())
+    agree = float((occ2.argmax(-1) == occ_p.argmax(-1)).float().mean())
+    ok = bad == 0 and derr <= OCC_DEPTH_ATOL and agree >= OCC_ARGMAX_AGREE
+    print(f"  frame 2, kernels vs plain versions on the card: occ max_abs_err "
+          f"{float(err.max()):.3e} ({bad} out of atol {OCC_LOGIT_ATOL:g} + rtol "
+          f"{OCC_LOGIT_RTOL:g}), depth max_abs_err {derr:.3e} (tol {OCC_DEPTH_ATOL:g}), argmax "
+          f"agreement {agree:.6f} (>= {OCC_ARGMAX_AGREE}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        problems.append("frame 2 with the kernels differs from the plain versions")
+    del occ_p, depth_p
+
+    # S1 on the recorded inputs (not counted: after the main path).
+    chk.close("bev_pool_fwd", "frame 2 (rig)", PB.bev_pool_v2(*rec["bev_pool"]),
+              PB.bev_pool_v2(*rec["bev_pool"], plain=True), S1_ATOL, S1_RTOL)
+    ones = (torch.ones_like(depth_in), torch.ones_like(feat_in[..., :1]), coor_in)
+    counts = PB.bev_pool_v2(*ones, lb, iv, (gx, gy, gz))
+    counts_plain = PB.bev_pool_v2(*ones, lb, iv, (gx, gy, gz), plain=True)
+    same = torch.equal(counts, counts_plain)
+    print(f"  bev_pool_fwd points per voxel (the voxel set): {'equal' if same else 'DIFFER'} "
+          f"({int((counts > 0).sum())} voxels, {int(counts.sum())} points)")
+    if not same:
+        problems.append("S1 puts points in other voxels than its plain version")
+    s1 = lambda: PB.bev_pool_v2(*rec["bev_pool"])  # noqa: E731
+    chk.time("bev_pool_fwd", s1, lambda: PB.bev_pool_v2(*rec["bev_pool"], plain=True))
+    C = feat_in.shape[-1]
+    rows = (depth_in[..., None] * feat_in[:, :, None]).reshape(-1, C)
+    flat = torch.zeros((gx * gy * gz + 1, C), device=dev)
+    idx = ranks.reshape(-1).long()
+    chk.library["bev_pool_fwd"] = time_ms(lambda: flat.index_add_(0, idx, rows))
+    nbytes = 4.0 * (depth_in.numel() + feat_in.numel() + coor_in.numel() + gx * gy * gz * C)
+    chk.bounds["bev_pool_fwd"] = bound(nbytes, 2.0 * inside * C)
+    del rows, flat, idx
+
+    # S2 on frame 2's recorded stereo features.
+    prev_s, curr_s, grid_s, D, bias = rec["stereo"][:5]
+    prob, cost, mask = PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, return_cost=True)
+    prob_p, cost_p, mask_p = PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, plain=True,
+                                                   return_cost=True)
+    flips = int((mask != mask_p).sum())
+    print(f"  stereo_cost_volume_fwd bias mask: {int(mask.sum())} of {mask.numel()} samples "
+          f"invalid, {flips} differ from the plain version's")
+    if flips:
+        problems.append(f"S2's bias mask differs from its plain version's at {flips} samples")
+    chk.close("stereo_cost_volume_fwd", "frame 2 costs", cost, cost_p, S2_COST_ATOL,
+              S2_COST_RTOL)
+    chk.close("stereo_cost_volume_fwd", "frame 2 softmax", prob, prob_p, S2_PROB_ATOL, 0.0)
+    BN, Hs, Ws, Cs = curr_s.shape
+    chk.time("stereo_cost_volume_fwd",
+             lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias),
+             lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, plain=True))
+    chk.library["stereo_cost_volume_fwd"] = None  # no single PyTorch call computes it
+    chk.bounds["stereo_cost_volume_fwd"], s2_flops, n_inside = s2_bound(grid_s, BN, Hs, Ws, Cs, D)
+    print(f"  stereo_cost_volume_fwd work: {BN * Hs * Ws * D} (pixel, bin) samples, {n_inside} "
+          f"corners inside, {s2_flops / 1e9:.2f} GFLOP")
+    del prob, cost, mask, prob_p, cost_p, mask_p, rec
+    for name in OCC_KERNEL_INFO:
+        k_ms, p_ms = chk.times[name]
+        lib = chk.library[name]
+        b_ms, b_by = chk.bounds[name]
+        print(f"  time {name} ({card}): kernel {k_ms:.4f} ms (device {chk.device[name]:.4f} "
+              f"ms), plain {p_ms:.4f} ms, library {'none' if lib is None else f'{lib:.4f} ms'}, "
+              f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / chk.device[name]:.3f}")
+
+    # Per-frame times (host clock, synchronised), peak memory, a profile.
+    def timed(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    f1 = timed(frame1)
+    f2 = timed(lambda: frame2(stereo1))
+    torch.cuda.reset_peak_memory_stats()
+    frame2(stereo1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  forward per frame ({card}), host clock, synchronised, median of 5: frame 1 "
+          f"{statistics.median(f1) * 1e3:.1f} ms {[round(t * 1e3, 1) for t in f1]}, frame 2 "
+          f"{statistics.median(f2) * 1e3:.1f} ms {[round(t * 1e3, 1) for t in f2]}; peak memory "
+          f"of frame 2 {peak:.3f} GiB")
+    frame = profile_device("profiled frame 2", lambda: frame2(stereo1), "occ_frame_profile.txt",
+                           names=tuple(OCC_KERNEL_INFO))
+    frame = {name: (frame[name][0], kernels.LAUNCHES[name]) for name in OCC_KERNEL_INFO}
+
+    # The stage-2 -> stage-3 contract: an extract_priors pickle, through
+    # CityPriors and VoxelizePriorPoints, into one forward.
+    stage2_pickle = Path(stage2_pickle or out / "synthetic" / "camera_priors" / OCC_CITY
+                         / f"{OCC_CITY}-c0.pkl")
+    contract = out / "stage2"
+    dst = contract / "camera_priors" / OCC_CITY / f"{OCC_CITY}-c0.pkl"
+    dst.parent.mkdir(parents=True)
+    shutil.copy(stage2_pickle, dst)
+    with open(dst, "rb") as f:
+        p = pickle.load(f)
+    xyz = (p["points"].astype(np.float32) + p["origin"].astype(np.float32)) * [-1, -1, 1]
+    centre = [float(np.median(xyz[:, 0])), float(np.median(xyz[:, 1])),
+              float(np.median(xyz[:, 2])) - 2.0]
+    s2_priors, n2 = occ_priors(contract, cfg, centre, dev, f"stage 2's {stage2_pickle.name}")
+    occ_c = model(imgs[0], *geo, **s2_priors, k2s_sensor=k2s)[0]
+    finite = bool(torch.isfinite(occ_c).all())
+    print(f"  stage-2 pickle ({len(p['points'])} points) -> {n2} prior voxels -> occ "
+          f"{tuple(occ_c.shape)}, finite {finite}")
+    if n2 == 0 or not finite:
+        problems.append(f"the stage-2 contract gave {n2} voxels, finite {finite}")
+
+    # The CLI on a checkpoint in the JAX CLI's schema, from the port's
+    # weights through the inverse bridge, over 2 npz samples with priors.
+    ckpt = out / "occ-step-000000000.pkl"
+    variables = bridge.occ_state_to_flax(model)
+    with open(ckpt, "wb") as f:
+        pickle.dump({"params": variables, "ema": variables, "ema_updates": 0, "iters": 0}, f)
+    data = out / "npz"
+    data.mkdir()
+    for i in range(2):
+        sample = {k: t.cpu().numpy() for k, t in
+                  zip(("sensor2ego", "cam2imgs", "post_rots", "post_trans", "bda"), geo)}
+        sample.update({k: v.cpu().numpy() for k, v in priors.items()})
+        sample["imgs"] = imgs[i].cpu().numpy()
+        sample["voxel_semantics"] = rng.randint(0, 18, (1, gx, gy, gz)).astype(np.uint8)
+        sample["mask_camera"] = (rng.rand(1, gx, gy, gz) > 0.3).astype(np.uint8)
+        np.savez(data / f"sample_{i}.npz", **sample)
+    del model
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = train_occ.main(["--config", OCC_CONFIG, "--eval-ckpt", str(ckpt), "--data-dir",
+                         str(data)])
+    torch.cuda.synchronize()
+    cli_launches = dict(kernels.LAUNCHES)
+    print(f"  train_occ --eval-ckpt ({card}): exit {rc} in {time.perf_counter() - t0:.2f} s "
+          f"(2 samples, model build and checkpoint load included); launches "
+          f"{ {k: cli_launches[k] for k in OCC_KERNEL_INFO} }")
+    if rc != 0 or any(cli_launches[k] <= 0 for k in ("bev_pool_fwd",)):
+        problems.append(f"train_occ --eval-ckpt exited {rc} or launched no S1")
+    return launches, cli_launches, frame, problems
+
+
+def occ_entries(chk: Checker, launches, cli_launches, frame):
+    """The kernels JSON line's entries of S1 and S2."""
+    paths = {"serve_occ": launches, "serve_occ_cli": cli_launches}
+    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches[name],
+             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+             "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
+             "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
+             "bound_ms": chk.bounds[name][0], "bound_by": chk.bounds[name][1],
+             "library_ms": chk.library.get(name), "frame_ms": frame[name][0],
+             "frame_launches": frame[name][1]}
+            for name, (src, replaces) in OCC_KERNEL_INFO.items()]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # Phase 1: the card.
@@ -2535,6 +2937,19 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     sass_report(lib_path)
+    if "--occupancy-only" in sys.argv[1:]:
+        print("phase 18 alone (--occupancy-only): occupancy serving")
+        chk = Checker()
+        occ_launches, occ_cli_launches, frame, problems = occupancy_phase(chk, card, None)
+        problems += chk.failures
+        if problems:
+            print("phase 18 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+            return 1
+        print(json.dumps({"kernels": occ_entries(chk, occ_launches, occ_cli_launches, frame)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # Phase 4 set-up first: the kernel checks use the model's own tables.
     config = tile_model_config("boston-seaport", 0, "camera")
@@ -2765,6 +3180,14 @@ def main() -> int:
     if problems:
         print("phase 17 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
+    torch.cuda.empty_cache()
+    print(f"phase 18: {OCC_CONFIG} served on the card ({time.perf_counter() - t_start:.0f} s in)")
+    occ_launches, occ_cli_launches, frame, problems = occupancy_phase(
+        chk, card, OUT_DIR / "serve_cli" / "priors" / "extracted_priors.pkl")
+    problems += chk.failures
+    if problems:
+        print("phase 18 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -2785,7 +3208,8 @@ def main() -> int:
          "render_reference_ms": render_ref[name][0],
          "render_reference_launches": render_ref[name][1],
          "step_disk_ms": step_disk[name][0], "step_disk_launches": step_disk[name][1]}
-        for name, (src, replaces) in KERNEL_INFO.items()]}))
+        for name, (src, replaces) in KERNEL_INFO.items()]
+        + occ_entries(chk, occ_launches, occ_cli_launches, frame)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,14 +1,23 @@
 """Parameter bridge between the JAX package's numpy trees and the port.
 
-The port keeps the JAX layouts: dense weights stay (in, out) (stacked
-experts (E, in, out)), biases (out,) or (E, out), 'shared' hash tables stay
-a list of per-level (T, 8F) tables. So a leaf crosses the bridge as a copy,
-with no transpose, and the tree's dicts, lists and tuples keep their shape.
+Stage 2: the port keeps the JAX layouts: dense weights stay (in, out)
+(stacked experts (E, in, out)), biases (out,) or (E, out), 'shared' hash
+tables stay a list of per-level (T, 8F) tables. So a leaf crosses the bridge
+as a copy, with no transpose, and the tree's dicts, lists and tuples keep
+their shape (``from_jax_params``, ``to_numpy``).
+
+Stage 3 (occupancy): the port's modules are PyTorch layers whose
+state_dict keys carry the flax auto-names (models/layers.py), so a flax
+``{"params", "batch_stats"}`` tree maps onto the port's state_dict by path
+(``occ_state_from_flax``, and back with ``occ_state_to_flax``): conv
+kernels HWIO / DHWIO -> OIHW / OIDHW, Dense kernels (in, out) -> (out, in),
+BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
+running_var.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,3 +41,89 @@ def from_jax_params(params_np: Any, device=None) -> Any:
 def to_numpy(state: Any) -> Any:
     """The port's tree of tensors -> numpy tree of the same structure."""
     return _map(state, lambda t: t.detach().cpu().numpy())
+
+
+# flax leaf name -> the port's tensor name, by collection
+_OCC_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_OCC_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _kernel_to_port(a: np.ndarray) -> np.ndarray:
+    """flax kernel -> the port's weight: (*k, in, out) -> (out, in, *k) for
+    convs, (in, out) -> (out, in) for Dense."""
+    nk = a.ndim - 2
+    return np.transpose(a, (a.ndim - 1, a.ndim - 2, *range(nk)))
+
+
+def _kernel_to_flax(a: np.ndarray) -> np.ndarray:
+    nk = a.ndim - 2
+    return np.transpose(a, (*range(2, 2 + nk), 1, 0))
+
+
+def occ_state_from_flax(variables_np: Any, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax occupancy tree (``{"params": ..., "batch_stats": ...}`` of
+    numpy arrays, as ``jax.device_get`` gives them) -> the port model's
+    state_dict, loaded into ``model`` and returned. Raises on a flax leaf
+    that names no port tensor, on a port tensor that no flax leaf fills,
+    and on a shape mismatch."""
+    target = model.state_dict()
+    filled: Dict[str, torch.Tensor] = {}
+    for collection, leaves in (("params", _OCC_PARAM_LEAVES), ("batch_stats", _OCC_STAT_LEAVES)):
+        for path, leaf in _flatten(variables_np.get(collection, {})):
+            if path[-1] not in leaves:
+                raise KeyError(f"occ_state_from_flax: unknown flax leaf {collection}/{'/'.join(path)}")
+            key = ".".join(path[:-1] + (leaves[path[-1]],))
+            if key not in target:
+                raise KeyError(f"occ_state_from_flax: flax leaf {collection}/{'/'.join(path)} "
+                               f"has no port tensor {key}")
+            if key in filled:
+                raise KeyError(f"occ_state_from_flax: port tensor {key} filled twice")
+            a = np.asarray(leaf)
+            if path[-1] == "kernel":
+                a = _kernel_to_port(a)
+            if tuple(a.shape) != tuple(target[key].shape):
+                raise ValueError(f"occ_state_from_flax: {collection}/{'/'.join(path)} "
+                                 f"{a.shape} -> {key} {tuple(target[key].shape)}")
+            filled[key] = torch.as_tensor(np.array(a, dtype=np.float32, order="C"))
+    missing = sorted(set(target) - set(filled))
+    if missing:
+        raise KeyError(f"occ_state_from_flax: {len(missing)} port tensors left unfilled, "
+                       f"e.g. {missing[:5]}")
+    model.load_state_dict(filled, strict=True)
+    return filled
+
+
+def occ_state_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port model's tensors -> a flax ``{"params", "batch_stats"}``
+    numpy tree (the inverse of occ_state_from_flax), as the JAX occupancy
+    CLI pickles it."""
+    from .models.layers import BatchNorm
+
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    stats = {v: k for k, v in _OCC_STAT_LEAVES.items()}
+    norms = {name for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    for key, t in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        owner = ".".join(mods)
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if leaf in stats:
+            collection, name = "batch_stats", stats[leaf]
+        elif owner in norms:
+            collection, name = "params", "scale" if leaf == "weight" else "bias"
+        else:
+            collection, name = "params", "kernel" if leaf == "weight" else "bias"
+            if leaf == "weight":
+                a = _kernel_to_flax(a)
+        node = out[collection]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return out

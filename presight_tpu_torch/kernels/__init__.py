@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
            "prop_grid_density_fwd", "hash_encode_bwd", "mlp_blocks_bwd",
-           "volume_render_bwd", "sorted_accum")
+           "volume_render_bwd", "sorted_accum", "bev_pool_fwd", "stereo_cost_volume_fwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -67,6 +67,19 @@ _ARGTYPES = {
     # keys, order, rows, n, C, out parts (host array), num_parts, part_rows,
     # vec, scratch, flags, stream
     "sorted_accum": [_P, _P, _P, _I64, _I, _P, _I, _I64, _I, _P, _P, _P],
+    # depth, feat, sorted ranks, order, n, D*H*W, H*W, C, B, Z*Y*X, starts,
+    # out, stream
+    "bev_pool_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P],
+    # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
+    "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+}
+
+# C functions that launch a kernel's preparation; the wrapper counts the
+# launch of the kernel they prepare.
+_PREPARATIONS = {
+    # coor, n, points per batch, lb (x, y, z), interval (x, y, z), X, Y, Z,
+    # ranks, stream
+    "bev_pool_ranks": [_P, _I64, _I64, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P],
 }
 
 # C functions that launch nothing: (argtypes, restype).
@@ -149,7 +162,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _ARGTYPES.items():
+        for name, argtypes in {**_ARGTYPES, **_PREPARATIONS}.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

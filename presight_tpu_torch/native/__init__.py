@@ -1,12 +1,15 @@
-"""ctypes bindings of the host libraries: the streaming voxel accumulator
-(voxelize.cpp, here) and the JPEG codec (jpeg.cpp, native/jpeg.py).
+"""ctypes bindings of the host libraries: the streaming voxel accumulator and
+the first-come voxelizer (voxelize.cpp, here) and the JPEG codec (jpeg.cpp,
+native/jpeg.py).
 
 ``g++`` builds each library at first use into ``<repo>/build/native/``,
 keyed on a hash of its source, the way ``kernels.build()`` keys the CUDA
 library; nothing is written into the source tree and nothing runs at import.
 A build failure raises: the numpy ``StreamingVoxelAccumulator`` of
 prior/voxelize.py is the plain version and is chosen only by an explicit
-argument, never as a silent fallback; the JPEG codec has none.
+argument, never as a silent fallback, and so is the numpy
+``points_to_voxel_plain`` of the first-come voxelizer; the JPEG codec has
+none.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +63,12 @@ def lib() -> ctypes.CDLL:
         handle.voxel_accum_size.restype = ctypes.c_int64
         handle.voxel_accum_size.argtypes = [ctypes.c_void_p]
         handle.voxel_accum_finalize.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 5
+        handle.points_to_voxel_first_come.restype = ctypes.c_int64
+        handle.points_to_voxel_first_come.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _lib = handle
     return _lib
 
@@ -113,3 +122,56 @@ class VoxelAccumulator:
         if getattr(self, "_handle", None):
             self._lib.voxel_accum_destroy(self._handle)
             self._handle = None
+
+
+def points_to_voxel(points: np.ndarray, voxel_size, coors_range, max_points: int = 16,
+                    max_voxels: int = 100_000, plain: bool = False
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """First-come voxelization (the reference's numba _points_to_voxel_kernel,
+    prior_points.py:232-298): voxels appear in point order up to
+    ``max_voxels``, each keeps its first ``max_points`` points. Returns
+    (voxels (V, max_points, ndim), coors (V, 3) in (z, y, x), counts (V,)).
+    ``plain=True`` runs the numpy version instead of the C++ one."""
+    points = np.ascontiguousarray(points, np.float32)
+    n, ndim = points.shape
+    vs = np.ascontiguousarray(voxel_size, np.float32)
+    cr = np.ascontiguousarray(coors_range, np.float32)
+    if plain:
+        return points_to_voxel_plain(points, vs, cr, max_points, max_voxels)
+    voxels = np.zeros((max_voxels, max_points, ndim), np.float32)
+    coors = np.zeros((max_voxels, 3), np.int32)
+    counts = np.zeros((max_voxels,), np.int32)
+    v = lib().points_to_voxel_first_come(
+        _ptr(points), n, ndim, _ptr(vs), _ptr(cr), max_points, max_voxels,
+        _ptr(voxels), _ptr(coors), _ptr(counts))
+    return voxels[:v], coors[:v], counts[:v]
+
+
+def points_to_voxel_plain(points, voxel_size, coors_range, max_points, max_voxels):
+    """The numpy version of points_to_voxel, with the same first-come rule
+    and the same f32 voxel arithmetic."""
+    points = np.ascontiguousarray(points, np.float32)
+    voxel_size = np.asarray(voxel_size, np.float32)
+    coors_range = np.asarray(coors_range, np.float32)
+    grid = np.round((coors_range[3:] - coors_range[:3]) / voxel_size).astype(np.int32)
+    c = np.floor((points[:, :3] - coors_range[:3]) / voxel_size).astype(np.int32)
+    ok = ((c >= 0) & (c < grid)).all(axis=1)
+    voxels = np.zeros((max_voxels, max_points, points.shape[1]), np.float32)
+    coors = np.zeros((max_voxels, 3), np.int32)
+    counts = np.zeros((max_voxels,), np.int32)
+    key_to_vid = {}
+    v = 0
+    for i in np.nonzero(ok)[0]:
+        key = (int(c[i, 2]), int(c[i, 1]), int(c[i, 0]))
+        vid = key_to_vid.get(key)
+        if vid is None:
+            if v >= max_voxels:
+                continue
+            vid = v
+            key_to_vid[key] = vid
+            coors[vid] = key
+            v += 1
+        if counts[vid] < max_points:
+            voxels[vid, counts[vid]] = points[i]
+            counts[vid] += 1
+    return voxels[:v], coors[:v], counts[:v]

@@ -1,14 +1,18 @@
-// Streaming voxel mean-downsample (C ABI, loaded with ctypes by
+// Host voxelizers (C ABI, loaded with ctypes by
 // presight_tpu_torch/native/__init__.py, which builds it with g++ at first
 // use into <repo>/build/native/).
 //
-// The port's copy of the JAX package's presight_tpu/native/voxelize.cpp
-// (its C6 half): it replaces Open3D's voxel_down_sample_and_trace
-// (extract_priors.py:216-245) with a single-pass hash-map accumulation of
-// points, colours and features -- O(N) time and O(V) memory instead of the
-// reference's up-to-300 GB host sort. Per-voxel sums accumulate in f64 in
-// arrival order, so the outputs equal the numpy StreamingVoxelAccumulator's
-// byte for byte.
+// The port's copy of the JAX package's presight_tpu/native/voxelize.cpp:
+//   C6: the streaming voxel mean-downsample of extraction. It replaces
+//       Open3D's voxel_down_sample_and_trace (extract_priors.py:216-245)
+//       with a single-pass hash-map accumulation of points, colours and
+//       features -- O(N) time and O(V) memory instead of the reference's
+//       up-to-300 GB host sort. Per-voxel sums accumulate in f64 in arrival
+//       order, so the outputs equal the numpy StreamingVoxelAccumulator's
+//       byte for byte.
+//   C5: the first-come voxel assignment of stage 3's VoxelizePriorPoints
+//       (the reference's numba _points_to_voxel_kernel,
+//       occupancy/mmdet3d/datasets/pipelines/prior_points.py:232-298).
 
 #include <algorithm>
 #include <cmath>
@@ -130,6 +134,66 @@ void voxel_accum_finalize(void* handle, double* out_points, double* out_colors,
     out_hits[o] = acc->hits[slot];
     if (out_keys) out_keys[o] = acc->keys[slot];
   }
+}
+
+// ---------------------------------------------------------------------------
+// C5 replacement: first-come voxel assignment with caps
+// (prior_points.py:232-298 semantics):
+//   * voxel coord = floor((p - coors_range_min) / voxel_size), per axis, in f32
+//   * points outside the range are skipped
+//   * first-come: voxels appear in point order, capped at max_voxels
+//   * each voxel holds at most max_points points (extras dropped)
+// Outputs: voxels (max_voxels, max_points, ndim) pre-zeroed by caller,
+// coors (max_voxels, 3) in (z, y, x) order as downstream expects,
+// num_points_per_voxel (max_voxels,) pre-zeroed. Returns the voxel count.
+// ---------------------------------------------------------------------------
+
+int64_t points_to_voxel_first_come(
+    const float* points, int64_t n, int64_t ndim, const float* voxel_size,
+    const float* coors_range /* (6,) xmin ymin zmin xmax ymax zmax */,
+    int64_t max_points, int64_t max_voxels, float* voxels /* zeroed */,
+    int32_t* coors, int32_t* num_points_per_voxel) {
+  std::unordered_map<int64_t, int64_t> coor_to_voxel;
+  int64_t voxel_num = 0;
+  int32_t grid[3];
+  for (int d = 0; d < 3; ++d) {
+    grid[d] = (int32_t)std::round((coors_range[3 + d] - coors_range[d]) /
+                                  voxel_size[d]);
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    const float* p = points + i * ndim;
+    int32_t c[3];
+    bool ok = true;
+    for (int d = 0; d < 3; ++d) {
+      int32_t cd = (int32_t)std::floor((p[d] - coors_range[d]) / voxel_size[d]);
+      if (cd < 0 || cd >= grid[d]) {
+        ok = false;
+        break;
+      }
+      c[d] = cd;
+    }
+    if (!ok) continue;
+    int64_t key = ((int64_t)c[2] << 42) | ((int64_t)c[1] << 21) | (int64_t)c[0];
+    auto it = coor_to_voxel.find(key);
+    int64_t vid;
+    if (it == coor_to_voxel.end()) {
+      if (voxel_num >= max_voxels) continue;
+      vid = voxel_num++;
+      coor_to_voxel.emplace(key, vid);
+      coors[vid * 3 + 0] = c[2];
+      coors[vid * 3 + 1] = c[1];
+      coors[vid * 3 + 2] = c[0];
+    } else {
+      vid = it->second;
+    }
+    int32_t& cnt = num_points_per_voxel[vid];
+    if (cnt < max_points) {
+      std::memcpy(voxels + (vid * max_points + cnt) * ndim, p,
+                  sizeof(float) * ndim);
+      cnt += 1;
+    }
+  }
+  return voxel_num;
 }
 
 }  // extern "C"

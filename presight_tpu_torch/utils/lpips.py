@@ -24,13 +24,14 @@ same shapes from a generator (for tests).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .precision import ieee_convolutions
 
 # VGG16 conv plan: (out_channels, convs in the block); a 2x2 max pool
 # between blocks.
@@ -104,19 +105,6 @@ def to_device(params: Dict, device) -> Dict:
             "lins": [v.to(device) for v in params["lins"]]}
 
 
-@contextlib.contextmanager
-def _ieee_convolutions():
-    """cuDNN convolutions in IEEE f32 inside the block, the process's
-    setting restored after it."""
-    conv = torch.backends.cudnn.conv
-    before = conv.fp32_precision
-    conv.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        conv.fp32_precision = before
-
-
 def vgg_features(params: Dict, x: torch.Tensor) -> List[torch.Tensor]:
     """Trunk forward: x (N, 3, H, W) scaled input -> the five tapped
     activations."""
@@ -163,5 +151,5 @@ def distance(params: Dict, pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor
 def lpips(params: Dict, pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """LPIPS of (H, W, 3) or (N, H, W, 3) images in [0, 1] (the reference's
     ``normalize=True``), the convolutions in IEEE f32."""
-    with _ieee_convolutions():
+    with ieee_convolutions():
         return distance(params, pred, gt)

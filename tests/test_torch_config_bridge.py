@@ -198,7 +198,8 @@ def test_kernel_build_is_lazy_and_keyed_on_sources():
     assert re.fullmatch(r"libpresight_kernels_[0-9a-f]{16}\.so", lib.name)
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "hash_encode.cu", "mlp_blocks.cu", "volume_render.cu", "prop_grid.cu",
-        "hash_encode_bwd.cu", "mlp_blocks_bwd.cu", "volume_render_bwd.cu", "sorted_accum.cu"}
+        "hash_encode_bwd.cu", "mlp_blocks_bwd.cu", "volume_render_bwd.cu", "sorted_accum.cu",
+        "bev_pool.cu", "stereo_cost.cu"}
     assert set(kernels.KERNELS) == set(kernels._ARGTYPES)
 
 
@@ -206,6 +207,7 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
     """A wrapper takes its plain version only for CPU tensors; any other
     device must launch the kernel or raise (here: 'meta' tensors)."""
     from presight_tpu_torch.fields.prop_field import prop_grid_density
+    from presight_tpu_torch.occupancy import bev_pool_v2, stereo_cost_volume
     from presight_tpu_torch.ops.hash_encoding import hash_encode
     from presight_tpu_torch.ops.mlp import apply_mlp, apply_mlp_blocks
     from presight_tpu_torch.ops.renderers import volume_render
@@ -228,4 +230,12 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
     with pytest.raises(ValueError, match="CUDA"):
         prop_grid_density(torch.zeros((2 * 8, 8), device=meta), torch.zeros((2, 3), device=meta),
                           torch.zeros((2, 2, 3), device=meta), torch.zeros((5, 3), device=meta), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        bev_pool_v2(torch.zeros((1, 2, 3, 4, 5), device=meta),
+                    torch.zeros((1, 2, 4, 5, 6), device=meta),
+                    torch.zeros((1, 2, 3, 4, 5, 3), device=meta), [0.0] * 3, [1.0] * 3, (4, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        stereo_cost_volume(torch.zeros((2, 3, 4, 8), device=meta),
+                           torch.zeros((2, 3, 4, 8), device=meta),
+                           torch.zeros((2, 5 * 3 * 4, 2), device=meta), 5)
     assert kernels._lib is None

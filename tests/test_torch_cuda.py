@@ -194,7 +194,8 @@ def test_kernels_match_plain_versions(cuda_model):
     kargs = (grid, p["props"][0]["centroids"], p["props"][0]["aabbs"], gpos, cfg.prop_grid_res)
     torch.testing.assert_close(PF.prop_grid_density(*kargs), PF.prop_grid_density_plain(*kargs),
                                rtol=1e-5, atol=1e-6)
-    assert all(kernels.LAUNCHES[name] > 0 for name in kernels.KERNELS if name.endswith("_fwd"))
+    assert all(kernels.LAUNCHES[name] > 0 for name in ("hash_encode_fwd", "mlp_blocks_fwd",
+                                                       "volume_render_fwd", "prop_grid_density_fwd"))
 
 
 @pytest.mark.parametrize("levels", [1, 2, 4, 16])
@@ -873,3 +874,63 @@ def test_lpips_on_the_card_matches_the_cpu_under_default_tf32_flags():
         torch.backends.cudnn.conv.fp32_precision = before
     np.testing.assert_allclose(card, cpu, rtol=1e-5)
     assert abs(tf32 - cpu) > 1e-5 * cpu, "the TF32 hazard did not show: the test has no teeth"
+
+
+def test_bev_pool_kernel_matches_plain():
+    """S1 against its plain version on the card: the same occupied voxels
+    (positive depth and features, so a voxel is nonzero exactly where a
+    point landed), values within rtol 1e-5 + atol 1e-6 (sums in point
+    order against index_add_'s atomics), and the same against the plain
+    version on the CPU; a quarter of the points lie on voxel faces; two
+    calls bitwise equal; C = 40 takes a partial chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.occupancy import bev_pool as PB
+
+    rng = np.random.RandomState(0)
+    lb, iv, gs = [-8.0, -8.0, -1.0], [0.8, 0.8, 0.5], (20, 20, 8)
+    for B, N, D, H, W, C in ((2, 3, 7, 5, 6, 32), (1, 2, 9, 4, 5, 40)):
+        depth = rng.rand(B, N, D, H, W).astype(np.float32)
+        feat = (rng.rand(B, N, H, W, C) + 0.1).astype(np.float32)
+        coor = (rng.rand(B, N, D, H, W, 3) * 20 - 10).astype(np.float32)
+        faces = rng.rand(B, N, D, H, W, 3) < 0.25
+        coor = np.where(faces, np.float32(lb) + rng.randint(-1, 22, coor.shape) * np.float32(iv),
+                        coor).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (depth, feat, coor)]
+        got = PB.bev_pool_v2(*args, lb, iv, gs)
+        again = PB.bev_pool_v2(*args, lb, iv, gs)
+        want = PB.bev_pool_v2(*args, lb, iv, gs, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got != 0, want != 0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        cpu = PB.bev_pool_v2(*(torch.from_numpy(a) for a in (depth, feat, coor)), lb, iv, gs)
+        assert torch.equal(got.cpu() != 0, cpu != 0)  # the f32 voxel arithmetic of the CPU
+        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_stereo_cost_volume_kernel_matches_plain():
+    """S2 against its plain version (F.grid_sample per bin) on the card:
+    post-ReLU features (exact zeros), samples outside the image and behind
+    the camera (-2); the bias mask equal, costs within rtol 1e-5 + atol
+    1e-4 (sums over channels in other orders), the softmax within atol
+    1e-5; C = 37 and D = 45 take the lanes' ragged ends."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.occupancy.view_transformer import stereo_cost_volume
+
+    rng = np.random.RandomState(1)
+    for BN, Hs, Ws, C, D in ((3, 16, 24, 64, 12), (2, 9, 13, 37, 45)):
+        prev = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
+        curr = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
+        grid = (rng.rand(BN, D * Hs * Ws, 2) * 2.6 - 1.3).astype(np.float32)
+        grid[:, ::7] = -2.0
+        args = [torch.from_numpy(a).cuda() for a in (prev, curr, grid)]
+        prob, cost, mask = stereo_cost_volume(*args, D, return_cost=True)
+        prob2 = stereo_cost_volume(*args, D)
+        want, want_cost, want_mask = stereo_cost_volume(*args, D, plain=True, return_cost=True)
+        torch.cuda.synchronize()
+        assert torch.equal(prob, prob2)
+        assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < mask.numel()
+        torch.testing.assert_close(cost, want_cost, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(prob, want, rtol=0, atol=1e-5)
