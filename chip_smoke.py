@@ -135,8 +135,12 @@ outputs/chip_smoke/):
      checked and timed on frame 2's recorded inputs (S1's voxel set by
      points per voxel; S2's bias mask exactly, costs and softmax), beside
      their bounds (S2's from the corners this grid puts inside) and S1's
-     index_add_; per-frame ms (median of 5), peak memory and a profiled
-     frame 2 (frame_ms, frame_launches); phase 17's extracted_priors.pkl
+     index_add_; S1's occupied voxels and largest interval, the corner
+     rows S2 loads under its reuse rule (stereo_row_fetches), and readings
+     that isolate parts of their time (S1 without the nearest bins and with
+     every point outside, S2 without reloads); per-frame ms (median of 5),
+     peak memory and a profiled frame 2 (frame_ms, frame_launches, each
+     S1 __global__'s share); phase 17's extracted_priors.pkl
      through CityPriors and VoxelizePriorPoints into one forward; the
      port's train_occ --eval-ckpt on a checkpoint in the JAX CLI's schema
      written through the inverse bridge, over 2 npz samples with priors.
@@ -163,6 +167,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -206,7 +211,8 @@ KERNEL_GLOBALS = {
                        "mlp_blocks_bwd_reduce_kernel"),
     "volume_render_bwd": ("volume_render_bwd_kernel",),
     "sorted_accum": ("sorted_accum_tiles", "sorted_accum_carry"),
-    "bev_pool_fwd": ("bev_pool_sum_kernel", "bev_pool_ranks_kernel", "bev_pool_starts_kernel"),
+    # S1's __global__s are all named bev_pool_*: the sum kernel runs once a call.
+    "bev_pool_fwd": ("bev_pool_sum_kernel", "bev_pool_"),
     "stereo_cost_volume_fwd": ("stereo_cost_volume_kernel",),
 }
 # Stage 3 (occupancy serving, phase 18): hand kernels for the JAX package's
@@ -1396,6 +1402,18 @@ def profile_device(label, fn, out_name, tries: int = 5, names=tuple(KERNEL_INFO)
     for name, (ms, calls) in by_kernel.items():
         print(f"  {label}: {name} {ms:.3f} ms device time in {calls} kernel launches "
               f"({ms / 1e3 / max(busy / 1e6, 1e-12):.3f} of device busy)")
+    parts = collections.defaultdict(lambda: [0.0, 0])  # a wrapper's time by __global__
+    for e in events:
+        name = next((k for k in names if any(g in e.name for g in KERNEL_GLOBALS[k])), None)
+        found = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+        if name is not None and found:
+            parts[name, found.group(1)][0] += (e.time_range.end - e.time_range.start) / 1e3
+            parts[name, found.group(1)][1] += 1
+    for name in names:
+        mine = {g: v for (k, g), v in parts.items() if k == name}
+        if len(mine) > 1:
+            print(f"  {label}: {name} by __global__: " + ", ".join(
+                f"{g} {ms:.4f} ms / {calls}" for g, (ms, calls) in sorted(mine.items())))
     for avg in prof.key_averages():
         if "evaluate_function" in avg.key and ("_HashEncodeBackward" in avg.key
                                                or "AccumulateGrad" in avg.key):
@@ -2738,9 +2756,12 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     lb, iv = rec["bev_pool"][3], rec["bev_pool"][4]
     ranks = PB.voxel_ranks(coor_in, lb, iv, (gx, gy, gz))
     inside = int((ranks < gx * gy * gz).sum())
-    occupied = int(ranks[ranks < gx * gy * gz].unique().numel())
+    per_voxel = torch.bincount(ranks[ranks < gx * gy * gz].long(), minlength=gx * gy * gz)
+    occupied = int((per_voxel > 0).sum())
     print(f"  rig: {inside} of {ranks.numel()} frustum points in the grid "
-          f"({inside / ranks.numel():.4f}), {occupied} voxels occupied")
+          f"({inside / ranks.numel():.4f}), {occupied} voxels occupied; S1's intervals: "
+          f"{inside / max(occupied, 1):.3f} points an occupied voxel, the largest "
+          f"{int(per_voxel.max())}")
     if inside < ranks.numel() // 4:
         problems.append(f"only {inside} frustum points land in the grid")
 
@@ -2781,6 +2802,17 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     nbytes = 4.0 * (depth_in.numel() + feat_in.numel() + coor_in.numel() + gx * gy * gz * C)
     chk.bounds["bev_pool_fwd"] = bound(nbytes, 2.0 * inside * C)
     del rows, flat, idx
+    # Readings that isolate parts of S1's time: without the nearest 8 depth
+    # bins (< 5 m, the heavy voxels next to the cameras), and with every
+    # point outside the grid (the ordering passes and the zero write).
+    near_out, all_out = coor_in.clone(), torch.full_like(coor_in, 1e4)
+    near_out[:, :, :8] = 1e4
+    readings = []
+    for label, c in (("nearest 8 bins outside", near_out), ("every point outside", all_out)):
+        ms = device_ms(lambda c=c: PB.bev_pool_v2(depth_in, feat_in, c, lb, iv, (gx, gy, gz)))
+        readings.append(f"{label} {ms:.4f} ms")
+    print(f"  bev_pool_fwd reading ({card}), device: " + ", ".join(readings))
+    del near_out, all_out
 
     # S2 on frame 2's recorded stereo features.
     prev_s, curr_s, grid_s, D, bias = rec["stereo"][:5]
@@ -2800,9 +2832,23 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
              lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias),
              lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, plain=True))
     chk.library["stereo_cost_volume_fwd"] = None  # no single PyTorch call computes it
+    # A reading without reloads: bin 0's position in every bin of a pixel
+    # (the same corner rows throughout), S2's blending and reduction alone.
+    one = grid_s.reshape(BN, D, Hs * Ws, 2)[:, :1].expand(-1, D, -1, -1).reshape(BN, -1, 2)
+    one = one.contiguous()
+    print(f"  stereo_cost_volume_fwd reading ({card}), device: one block a pixel (no reloads) "
+          f"{device_ms(lambda: PV.stereo_cost_volume(prev_s, curr_s, one, D, bias)):.4f} ms")
+    del one
     chk.bounds["stereo_cost_volume_fwd"], s2_flops, n_inside = s2_bound(grid_s, BN, Hs, Ws, Cs, D)
     print(f"  stereo_cost_volume_fwd work: {BN * Hs * Ws * D} (pixel, bin) samples, {n_inside} "
           f"corners inside, {s2_flops / 1e9:.2f} GFLOP")
+    if hasattr(PV, "stereo_row_fetches"):  # not in trees older than S2's row reuse
+        reuse = PV.stereo_row_fetches(grid_s, Hs, Ws, D)
+        print(f"  stereo_cost_volume_fwd corner rows under the reuse rule: {reuse['fetches']} "
+              f"fetches, {reuse['fetches'] / reuse['samples']:.3f} a (pixel, bin) (every inside "
+              f"corner each bin: {reuse['corners'] / reuse['samples']:.3f}); bins keeping all "
+              f"four rows {reuse['same']}, stepping one pixel {reuse['step']}, loading all four "
+              f"{reuse['jump']}")
     del prob, cost, mask, prob_p, cost_p, mask_p, rec
     for name in OCC_KERNEL_INFO:
         k_ms, p_ms = chk.times[name]
@@ -2823,6 +2869,10 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
             times.append(time.perf_counter() - t0)
         return times
 
+    # The checks above leave hundreds of MB cached (the recorded inputs,
+    # stereo_row_fetches' temporaries): hand them back, so that the frames
+    # are timed with the allocator as a served model would have it.
+    torch.cuda.empty_cache()
     f1 = timed(frame1)
     f2 = timed(lambda: frame2(stereo1))
     torch.cuda.reset_peak_memory_stats()

@@ -67,25 +67,20 @@ _ARGTYPES = {
     # keys, order, rows, n, C, out parts (host array), num_parts, part_rows,
     # vec, scratch, flags, stream
     "sorted_accum": [_P, _P, _P, _I64, _I, _P, _I, _I64, _I, _P, _P, _P],
-    # depth, feat, sorted ranks, order, n, D*H*W, H*W, C, B, Z*Y*X, starts,
-    # out, stream
-    "bev_pool_fwd": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P],
+    # depth, feat, coor, n, points per batch, D*H*W, H*W, C, B, lb (x, y, z),
+    # interval (x, y, z), X, Y, Z, scratch, out, stream
+    "bev_pool_fwd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _F, _F, _F,
+                     _I, _I, _I, _P, _P, _P],
     # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
     "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-}
-
-# C functions that launch a kernel's preparation; the wrapper counts the
-# launch of the kernel they prepare.
-_PREPARATIONS = {
-    # coor, n, points per batch, lb (x, y, z), interval (x, y, z), X, Y, Z,
-    # ranks, stream
-    "bev_pool_ranks": [_P, _I64, _I64, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P],
 }
 
 # C functions that launch nothing: (argtypes, restype).
 _QUERIES = {
     # R, S, C, with_payload -> floats of K3b's scratch buffer
     "volume_render_bwd_scratch_floats": ([_I64, _I, _I, _I], _I64),
+    # points, voxels -> int32 words of S1's scratch buffer
+    "bev_pool_scratch_ints": ([_I64, _I64], _I64),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -162,7 +157,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in {**_ARGTYPES, **_PREPARATIONS}.items():
+        for name, argtypes in _ARGTYPES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

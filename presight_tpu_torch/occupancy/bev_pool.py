@@ -6,9 +6,10 @@ Every frustum point adds ``depth[b,n,d,h,w] * feat[b,n,h,w,:]`` into voxel
 package writes it as one segment_sum over all points with a dump row (an
 XLA stand-in for the reference's bev_pool_v2 CUDA kernel,
 occupancy/mmdet3d/ops/bev_pool_v2/src/bev_pool_cuda.cu). Here it is kernel
-S1 (csrc/bev_pool.cu, the reference's interval sum over rank-sorted
-points) on CUDA tensors, and :func:`bev_pool_v2_plain` (index_add_ of the
-materialised rows) on CPU tensors or with ``plain=True``.
+S1 (csrc/bev_pool.cu: a counting sort by voxel in its own passes, then the
+reference's interval sum in point order) on CUDA tensors, and
+:func:`bev_pool_v2_plain` (index_add_ of the materialised rows) on CPU
+tensors or with ``plain=True``.
 """
 
 from __future__ import annotations
@@ -79,21 +80,17 @@ def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor, coor: torch.Tensor,
     gx, gy, gz = (int(g) for g in grid_size)
     cells = B * gz * gy * gx
     n = depth.numel()
-    if n >= 2**31 or cells >= 2**31 - 1:
+    if n >= 2**31 - 1 or cells >= 2**31 - 4096:
         raise ValueError("bev_pool_v2: more than 2^31 points or cells")
     lb = [float(v) for v in np.asarray(grid_lower_bound, np.float32)]
     iv = [float(v) for v in np.asarray(grid_interval, np.float32)]
     lib = kernels.lib()
-    ranks = torch.empty(n, dtype=torch.int32, device=depth.device)
-    kernels.check("bev_pool_ranks", lib.bev_pool_ranks(
-        coor.data_ptr(), n, N * D * H * W, *lb, *iv, gx, gy, gz, ranks.data_ptr(),
-        kernels.stream()))
-    sorted_ranks, order = torch.sort(ranks, stable=True)
-    starts = torch.empty(cells + 1, dtype=torch.int32, device=depth.device)
+    scratch = torch.empty(lib.bev_pool_scratch_ints(n, cells), dtype=torch.int32,
+                          device=depth.device)
     out = torch.empty((B, C, gz, gy, gx), dtype=torch.float32, device=depth.device)
-    code = lib.bev_pool_fwd(depth.data_ptr(), feat.data_ptr(), sorted_ranks.data_ptr(),
-                            order.data_ptr(), n, D * H * W, H * W, C, B, gz * gy * gx,
-                            starts.data_ptr(), out.data_ptr(), kernels.stream())
+    code = lib.bev_pool_fwd(depth.data_ptr(), feat.data_ptr(), coor.data_ptr(), n, N * D * H * W,
+                            D * H * W, H * W, C, B, *lb, *iv, gx, gy, gz, scratch.data_ptr(),
+                            out.data_ptr(), kernels.stream())
     kernels.check("bev_pool_fwd", code)
     kernels.LAUNCHES["bev_pool_fwd"] += 1
     return out

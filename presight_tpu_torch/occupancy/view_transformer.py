@@ -164,6 +164,41 @@ def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor, grid: t
     return out
 
 
+def stereo_row_fetches(grid: torch.Tensor, height: int, width: int,
+                       depth_bins: int) -> Dict[str, int]:
+    """What S2's reuse rule (csrc/stereo_cost.cu) makes of ``grid`` (BN,
+    D*H*W, 2): a pixel's bins are walked in order, holding the four corner
+    rows of the bin in hand; a bin whose clamped top-left corner steps by at
+    most one pixel on each axis loads only the rows it does not share with
+    the last, any other bin all four, and a row outside the image is zeros,
+    not a load. Returns the (pixel, bin) samples, the rows loaded
+    (``fetches``), the inside corners (``corners``: what a design that
+    reloads every bin's rows reads), and the bins that keep all four rows
+    (``same``), step by one pixel (``step``) or load all four (``jump``,
+    each pixel's first bin included)."""
+    H, W, D = height, width, depth_bins
+    g = grid.reshape(grid.shape[0], D, H * W, 2)
+    x = (g[..., 0] + 1.0) * 0.5 * (W - 1)
+    y = (g[..., 1] + 1.0) * 0.5 * (H - 1)
+    x0 = torch.nan_to_num(torch.floor(x), nan=-2.0).clamp(-2, W)
+    y0 = torch.nan_to_num(torch.floor(y), nan=-2.0).clamp(-2, H)
+    dx = torch.diff(x0, dim=1, prepend=torch.full_like(x0[:, :1], -1e9))
+    dy = torch.diff(y0, dim=1, prepend=torch.full_like(y0[:, :1], -1e9))
+    near = (dx.abs() <= 1) & (dy.abs() <= 1)
+    same = (dx == 0) & (dy == 0)
+    fetches = corners = 0
+    for a in (0, 1):
+        for b in (0, 1):
+            xa, yb = x0 + a, y0 + b
+            inside = (xa >= 0) & (xa <= W - 1) & (yb >= 0) & (yb <= H - 1)
+            need = ~near | (dx == (1 if a else -1)) | (dy == (1 if b else -1))
+            fetches += int((need & inside).sum())
+            corners += int(inside.sum())
+    return {"samples": int(x0.numel()), "fetches": fetches, "corners": corners,
+            "same": int(same.sum()), "step": int((near & ~same).sum()),
+            "jump": int((~near).sum())}
+
+
 class DepthNet(nn.Module):
     """Camera-aware depth/context head (view_transformer.py:208): conv
     trunk with an SE gate from the flattened camera parameters; with

@@ -876,61 +876,158 @@ def test_lpips_on_the_card_matches_the_cpu_under_default_tf32_flags():
     assert abs(tf32 - cpu) > 1e-5 * cpu, "the TF32 hazard did not show: the test has no teeth"
 
 
-def test_bev_pool_kernel_matches_plain():
-    """S1 against its plain version on the card: the same occupied voxels
-    (positive depth and features, so a voxel is nonzero exactly where a
-    point landed), values within rtol 1e-5 + atol 1e-6 (sums in point
-    order against index_add_'s atomics), and the same against the plain
-    version on the CPU; a quarter of the points lie on voxel faces; two
-    calls bitwise equal; C = 40 takes a partial chunk."""
+# Occupancy kernels S1 and S2: inputs that reach every path of their designs.
+S1_LB, S1_IV, S1_GRID = [-8.0, -8.0, -1.0], [0.8, 0.8, 0.5], (20, 20, 8)
+# 3,087 voxels a batch: runs that straddle the batches, planes not 16-byte
+# aligned (S1's store path for any grid).
+S1_ODD_GRID = (21, 21, 7)
+
+
+def s1_points(rng, kind, B, N, D, H, W, C):
+    """S1 inputs (depth, feat, coor) as numpy: positive depth and features
+    (a voxel is nonzero exactly where a point landed) and a quarter of the
+    coordinates on voxel faces. ``random`` (and ``odd_grid``): points over
+    the grid and past it. ``heavy``: as random, plus three voxels of each batch given about
+    200, 300 and 800 points (past the 256 sorted in shared memory), a tenth
+    of their coordinates on the voxels' lower faces. ``one_voxel``: every point of a batch in one voxel
+    (inside it, off its faces)."""
+    lb, iv = np.float32(S1_LB), np.float32(S1_IV)
+    depth = rng.rand(B, N, D, H, W).astype(np.float32)
+    feat = (rng.rand(B, N, H, W, C) + 0.1).astype(np.float32)
+    if kind == "one_voxel":
+        cell = np.array([5, 7, 3])
+        frac = rng.uniform(0.05, 0.95, (B, N, D, H, W, 3))
+        return depth, feat, (lb + (cell + frac) * iv).astype(np.float32)
+    coor = (rng.rand(B, N, D, H, W, 3) * 20 - 10).astype(np.float32)
+    faces = rng.rand(B, N, D, H, W, 3) < 0.25
+    coor = np.where(faces, lb + rng.randint(-1, 22, coor.shape) * iv, coor).astype(np.float32)
+    if kind == "heavy":
+        flat = coor.reshape(B, -1, 3)
+        for b in range(B):
+            picks, start = rng.permutation(flat.shape[1]), 0
+            for size, cell in ((200, (3, 4, 2)), (300, (10, 10, 5)), (800, (17, 2, 6))):
+                idx, start = picks[start:start + size], start + size
+                pts = lb + (np.asarray(cell) + rng.uniform(0.05, 0.95, (size, 3))) * iv
+                on_face = rng.rand(size, 3) < 0.1
+                flat[b, idx] = np.where(on_face, lb + np.asarray(cell) * iv, pts)
+        coor = flat.reshape(coor.shape)
+    return depth, feat, coor
+
+
+S1_CASES = [("random", 2, 3, 7, 5, 6, 32), ("random", 1, 2, 9, 4, 5, 40),
+            ("odd_grid", 2, 3, 7, 5, 6, 32),
+            ("heavy", 2, 3, 10, 8, 10, 32), ("heavy", 2, 3, 10, 8, 10, 40),
+            ("heavy", 2, 3, 10, 8, 10, 64), ("heavy", 2, 3, 10, 8, 10, 96),
+            ("one_voxel", 2, 2, 6, 8, 12, 40)]
+
+
+@pytest.mark.parametrize("kind,B,N,D,H,W,C", S1_CASES)
+def test_bev_pool_kernel_matches_plain(kind, B, N, D, H, W, C):
+    """S1 against its plain version on the card: the same points per voxel
+    (depth and features 1) and so the same occupied voxels, values within
+    rtol 1e-5 + atol 1e-6 (sums in point order against index_add_'s
+    atomics; rtol 1e-4 + atol 1e-5 for the heavy voxels' sums of hundreds),
+    and the same against the plain version on the CPU; a quarter of the
+    points lie on voxel faces; two calls bitwise equal. C = 40 takes a
+    ragged channel chunk, C = 64 two whole ones, C = 96 the runs of 32
+    voxels that wider C takes; ``odd_grid`` writes a grid of 3,087 voxels
+    a batch (S1_ODD_GRID) element by element; ``heavy`` and
+    ``one_voxel`` sort intervals of hundreds and over a thousand points
+    (see s1_points)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from presight_tpu_torch.occupancy import bev_pool as PB
 
     rng = np.random.RandomState(0)
-    lb, iv, gs = [-8.0, -8.0, -1.0], [0.8, 0.8, 0.5], (20, 20, 8)
-    for B, N, D, H, W, C in ((2, 3, 7, 5, 6, 32), (1, 2, 9, 4, 5, 40)):
-        depth = rng.rand(B, N, D, H, W).astype(np.float32)
-        feat = (rng.rand(B, N, H, W, C) + 0.1).astype(np.float32)
-        coor = (rng.rand(B, N, D, H, W, 3) * 20 - 10).astype(np.float32)
-        faces = rng.rand(B, N, D, H, W, 3) < 0.25
-        coor = np.where(faces, np.float32(lb) + rng.randint(-1, 22, coor.shape) * np.float32(iv),
-                        coor).astype(np.float32)
-        args = [torch.from_numpy(a).cuda() for a in (depth, feat, coor)]
-        got = PB.bev_pool_v2(*args, lb, iv, gs)
-        again = PB.bev_pool_v2(*args, lb, iv, gs)
-        want = PB.bev_pool_v2(*args, lb, iv, gs, plain=True)
-        torch.cuda.synchronize()
-        assert torch.equal(got, again)
-        assert torch.equal(got != 0, want != 0)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        cpu = PB.bev_pool_v2(*(torch.from_numpy(a) for a in (depth, feat, coor)), lb, iv, gs)
-        assert torch.equal(got.cpu() != 0, cpu != 0)  # the f32 voxel arithmetic of the CPU
-        torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
+    lb, iv, gs = S1_LB, S1_IV, S1_ODD_GRID if kind == "odd_grid" else S1_GRID
+    rtol, atol = (1e-5, 1e-6) if kind in ("random", "odd_grid") else (1e-4, 1e-5)
+    depth, feat, coor = s1_points(rng, kind, B, N, D, H, W, C)
+    args = [torch.from_numpy(a).cuda() for a in (depth, feat, coor)]
+    got = PB.bev_pool_v2(*args, lb, iv, gs)
+    again = PB.bev_pool_v2(*args, lb, iv, gs)
+    want = PB.bev_pool_v2(*args, lb, iv, gs, plain=True)
+    ones = (torch.ones_like(args[0]), torch.ones_like(args[1][..., :1]), args[2])
+    counts = PB.bev_pool_v2(*ones, lb, iv, gs)
+    counts_plain = PB.bev_pool_v2(*ones, lb, iv, gs, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(counts, counts_plain)
+    assert torch.equal(got != 0, want != 0)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if kind == "heavy":
+        assert int(counts.max()) > 256
+    if kind == "one_voxel":
+        assert int((counts > 0).sum()) == B and int(counts.max()) == N * D * H * W
+    cpu = PB.bev_pool_v2(*(torch.from_numpy(a) for a in (depth, feat, coor)), lb, iv, gs)
+    assert torch.equal(got.cpu() != 0, cpu != 0)  # the f32 voxel arithmetic of the CPU
+    torch.testing.assert_close(got.cpu(), cpu, rtol=rtol, atol=atol)
 
 
-def test_stereo_cost_volume_kernel_matches_plain():
+def smooth_epipolar_grid(rng, BN, Hs, Ws, D):
+    """A stereo grid (BN, D * Hs * Ws, 2) whose bins walk a line through the
+    previous image as gen_stereo_grid's do, but through every case of S2's
+    row reuse: steps of 0, 1/32, 1/16, 1/4, exactly 1 and -1 pixel, -1/4,
+    jumps of 3 and -6 pixels, walks that leave the image and re-enter it
+    (positions wrap around a band 4-5 pixels past each edge), a fifth of
+    the positions on exact integer coordinates, and samples behind the
+    camera (-2: 5% of the bins, and the first three bins of an eighth of
+    the pixels). Positions are multiples of 1/32 and Ws - 1, Hs - 1 powers
+    of two, so the kernel's (g + 1) / 2 * (W - 1) gives them back exactly."""
+    P = Hs * Ws
+    sx = rng.choice(np.array([0, 1, 2, 8, 32, -32, -8, 96, -192]) / 32.0, (BN, P, D),
+                    p=[0.25, 0.15, 0.1, 0.1, 0.12, 0.08, 0.08, 0.06, 0.06])
+    sy = rng.choice(np.array([0, 1, -1, 4, 32, -32]) / 32.0, (BN, P, D),
+                    p=[0.5, 0.1, 0.1, 0.1, 0.1, 0.1])
+    x = rng.randint(-4 * 32, (Ws + 3) * 32, (BN, P, 1)) / 32.0 + np.cumsum(sx, -1)
+    y = rng.randint(-3 * 32, (Hs + 2) * 32, (BN, P, 1)) / 32.0 + np.cumsum(sy, -1)
+    x = np.mod(x + 5, Ws + 9) - 5
+    y = np.mod(y + 4, Hs + 8) - 4
+    snap = rng.rand(BN, P, D) < 0.2
+    x, y = np.where(snap, np.floor(x), x), np.where(snap, np.floor(y), y)
+    g = np.stack([x / (Ws - 1) * 2 - 1, y / (Hs - 1) * 2 - 1], -1)
+    behind = rng.rand(BN, P, D) < 0.05
+    behind[:, ::8, :3] = True
+    g[behind] = -2.0
+    return np.ascontiguousarray(g.transpose(0, 2, 1, 3)).reshape(BN, D * P, 2).astype(np.float32)
+
+
+S2_CASES = [("random", 3, 16, 24, 64, 12), ("random", 2, 9, 13, 37, 45),
+            ("smooth", 2, 17, 33, 256, 88), ("smooth", 2, 17, 33, 40, 45),
+            ("smooth", 1, 17, 33, 300, 70)]
+
+
+@pytest.mark.parametrize("kind,BN,Hs,Ws,C,D", S2_CASES)
+def test_stereo_cost_volume_kernel_matches_plain(kind, BN, Hs, Ws, C, D):
     """S2 against its plain version (F.grid_sample per bin) on the card:
     post-ReLU features (exact zeros), samples outside the image and behind
     the camera (-2); the bias mask equal, costs within rtol 1e-5 + atol
     1e-4 (sums over channels in other orders), the softmax within atol
-    1e-5; C = 37 and D = 45 take the lanes' ragged ends."""
+    1e-5; two calls bitwise equal. ``random`` grids miss every held row
+    (C = 37 and D = 45 take the lanes' ragged ends); ``smooth`` grids keep
+    rows, carry two or one, jump and step back (smooth_epipolar_grid): the
+    reference width C = 256 and D = 88, a ragged C = 40, and C = 300 in two
+    channel chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from presight_tpu_torch.occupancy.view_transformer import stereo_cost_volume
+    from presight_tpu_torch.occupancy.view_transformer import (stereo_cost_volume,
+                                                               stereo_row_fetches)
 
     rng = np.random.RandomState(1)
-    for BN, Hs, Ws, C, D in ((3, 16, 24, 64, 12), (2, 9, 13, 37, 45)):
-        prev = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
-        curr = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
+    prev = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
+    curr = np.maximum(rng.randn(BN, Hs, Ws, C), 0).astype(np.float32)
+    if kind == "random":
         grid = (rng.rand(BN, D * Hs * Ws, 2) * 2.6 - 1.3).astype(np.float32)
         grid[:, ::7] = -2.0
-        args = [torch.from_numpy(a).cuda() for a in (prev, curr, grid)]
-        prob, cost, mask = stereo_cost_volume(*args, D, return_cost=True)
-        prob2 = stereo_cost_volume(*args, D)
-        want, want_cost, want_mask = stereo_cost_volume(*args, D, plain=True, return_cost=True)
-        torch.cuda.synchronize()
-        assert torch.equal(prob, prob2)
-        assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < mask.numel()
-        torch.testing.assert_close(cost, want_cost, rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(prob, want, rtol=0, atol=1e-5)
+    else:
+        grid = smooth_epipolar_grid(rng, BN, Hs, Ws, D)
+        reuse = stereo_row_fetches(torch.from_numpy(grid), Hs, Ws, D)
+        assert min(reuse["same"], reuse["step"], reuse["jump"]) > 0
+    args = [torch.from_numpy(a).cuda() for a in (prev, curr, grid)]
+    prob, cost, mask = stereo_cost_volume(*args, D, return_cost=True)
+    prob2, cost2, mask2 = stereo_cost_volume(*args, D, return_cost=True)
+    want, want_cost, want_mask = stereo_cost_volume(*args, D, plain=True, return_cost=True)
+    torch.cuda.synchronize()
+    assert torch.equal(prob, prob2) and torch.equal(cost, cost2) and torch.equal(mask, mask2)
+    assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < mask.numel()
+    torch.testing.assert_close(cost, want_cost, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(prob, want, rtol=0, atol=1e-5)
