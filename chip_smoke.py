@@ -144,8 +144,24 @@ outputs/chip_smoke/):
      through CityPriors and VoxelizePriorPoints into one forward; the
      port's train_occ --eval-ckpt on a checkpoint in the JAX CLI's schema
      written through the inverse bridge, over 2 npz samples with priors.
-     ``python3 chip_smoke.py --occupancy-only`` runs phases 1, 2 and 18
-     alone (the synthetic pickle standing in for phase 17's).
+     ``python3 chip_smoke.py --occupancy-only`` runs phases 1, 2, 18 and
+     19 alone (the synthetic pickle standing in for phase 17's).
+ 19. stage-3 occupancy training: the same model in train mode from the same
+     seed, on one batch of the rig (6 x 256 x 704, a seeded label volume
+     with a camera mask, phase 18's synthetic priors; no previous frame, as
+     the JAX CLI trains, so S2 does not run): one train_step's loss and
+     every clipped gradient with the kernels against the same train_step
+     with plain=True (OCC_* tolerances; bev_pool_v2's output has a grad_fn); then
+     the main path, counted: 10 steps of scripts.train_occ.train_step
+     (train-mode BatchNorm, occ_loss, S1b in the backward, optax's
+     global-norm clipping, AdamW, the EMA), the loss falling, S1 and S1b
+     launched once a step; the steady step (host clock to a synchronize,
+     median of steps 2-5) and peak memory; S1b checked against
+     bev_pool_v2_bwd_plain on the first step's recorded inputs and g
+     (S1B_* tolerances), timed beside its bound, its plain version and
+     index_select of the gathered rows; one profiled step (step_ms, step_launches); the CLI
+     (train_occ --config <reference> --iters 2, then --eval-ckpt on its
+     pickle).
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
@@ -156,7 +172,9 @@ device_ms by CUDA events around ten calls queued behind a spin), bound,
 and device time (torch.profiler) and launches in one training step and in
 one 450x800 render of each profile, and for S1 and S2 their launches on
 phase 18's frames (serve_occ) and CLI (serve_occ_cli) and their device time
-in a profiled frame (frame_ms, frame_launches); the last line is {"ok": true,
+in a profiled frame (frame_ms, frame_launches), and with S1b their launches
+in phase 19's steps (train_occ) and CLI (train_occ_cli) and their device
+time in a profiled step (step_ms, step_launches); the last line is {"ok": true,
 "device": {...}}. Writes the prior pickles, the profile tables and phase
 17's outputs under outputs/chip_smoke/.
 """
@@ -211,18 +229,25 @@ KERNEL_GLOBALS = {
                        "mlp_blocks_bwd_reduce_kernel"),
     "volume_render_bwd": ("volume_render_bwd_kernel",),
     "sorted_accum": ("sorted_accum_tiles", "sorted_accum_carry"),
-    # S1's __global__s are all named bev_pool_*: the sum kernel runs once a call.
-    "bev_pool_fwd": ("bev_pool_sum_kernel", "bev_pool_"),
+    # S1: the sum kernel runs once a call, after the count, scan and place passes.
+    "bev_pool_fwd": ("bev_pool_sum_kernel", "bev_pool_count_kernel", "bev_pool_scan_kernel",
+                     "bev_pool_place_kernel"),
     "stereo_cost_volume_fwd": ("stereo_cost_volume_kernel",),
+    # S1b: one gather a call.
+    "bev_pool_bwd": ("bev_pool_bwd_kernel",),
 }
-# Stage 3 (occupancy serving, phase 18): hand kernels for the JAX package's
-# XLA stand-ins of the reference's own CUDA kernels (no TPU kernel).
+# Stage 3 (occupancy serving, phase 18, and training, phase 19): hand
+# kernels for the JAX package's XLA stand-ins of the reference's own CUDA
+# kernels (no TPU kernel); S1b is the autodiff of S1's site.
 OCC_KERNEL_INFO = {
     "bev_pool_fwd": ("presight_tpu_torch/csrc/bev_pool.cu",
                      "presight_tpu/occupancy/bev_pool.py:29"),
     "stereo_cost_volume_fwd": ("presight_tpu_torch/csrc/stereo_cost.cu",
                                "presight_tpu/occupancy/view_transformer.py:168"),
+    "bev_pool_bwd": ("presight_tpu_torch/csrc/bev_pool.cu",
+                     "presight_tpu/occupancy/bev_pool.py:29"),
 }
+OCC_SERVE_KERNELS = ("bev_pool_fwd", "stereo_cost_volume_fwd")
 SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
                  "prop_grid_density_fwd")
 # Published peaks of one H100 SXM at 700 W: HBM bandwidth, f32 outside the
@@ -2731,7 +2756,7 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     launches = dict(kernels.LAUNCHES)
     print(f"  frames 1 and 2 (first run): {t_first:.3f} s; launches "
           f"{ {k: launches[k] for k in OCC_KERNEL_INFO} }")
-    for name in OCC_KERNEL_INFO:
+    for name in OCC_SERVE_KERNELS:
         if launches[name] <= 0:
             problems.append(f"{name} was not launched on the occupancy path")
     shapes = {"occ": (tuple(occ2.shape), (1, gx, gy, gz, 18)),
@@ -2850,7 +2875,7 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
               f"four rows {reuse['same']}, stepping one pixel {reuse['step']}, loading all four "
               f"{reuse['jump']}")
     del prob, cost, mask, prob_p, cost_p, mask_p, rec
-    for name in OCC_KERNEL_INFO:
+    for name in OCC_SERVE_KERNELS:
         k_ms, p_ms = chk.times[name]
         lib = chk.library[name]
         b_ms, b_by = chk.bounds[name]
@@ -2886,6 +2911,8 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     frame = profile_device("profiled frame 2", lambda: frame2(stereo1), "occ_frame_profile.txt",
                            names=tuple(OCC_KERNEL_INFO))
     frame = {name: (frame[name][0], kernels.LAUNCHES[name]) for name in OCC_KERNEL_INFO}
+    if frame["bev_pool_bwd"][1]:
+        problems.append("S1b ran in a served frame")
 
     # The stage-2 -> stage-3 contract: an extract_priors pickle, through
     # CityPriors and VoxelizePriorPoints, into one forward.
@@ -2941,17 +2968,264 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     return launches, cli_launches, frame, problems
 
 
-def occ_entries(chk: Checker, launches, cli_launches, frame):
-    """The kernels JSON line's entries of S1 and S2."""
-    paths = {"serve_occ": launches, "serve_occ_cli": cli_launches}
+# Phase 19: S1b against its plain version on a training step's recorded
+# inputs: d feat sums a pixel's 88 products in bin order as the plain
+# version does, d depth is a dot product over 32 channels in another order.
+S1B_RTOL, S1B_ATOL_FRAC = 1e-5, 1e-6  # atol: this fraction of the largest gradient
+# One training step with the kernels against the same step with the plain
+# versions, from the same weights on the same batch: S1 sums in point order
+# against index_add_'s atomics (whose order changes from run to run) and
+# S1b gathers against index_select, and cuDNN's backward sums in its own
+# orders, through a 50-layer network whose train-mode BatchNorm
+# renormalises every layer. Each leaf is held within OCC_GRAD_RTOL_FRAC of
+# its largest element plus OCC_GRAD_ATOL_FRAC of the largest gradient, and
+# the spread between two plain steps is printed beside it as the noise
+# floor. On an H100 a first reading put leaves 3.5e-3 of their largest
+# element apart; two plain steps then differed by 1.7e-5 of the largest
+# gradient in a conv bias that a BatchNorm follows (DepthNet's first
+# cost-volume conv over the zero cost volume: a gradient of rounding
+# noise, 0 in exact arithmetic), which the atol covers six times over. The
+# loss within OCC_LOSS_RTOL.
+OCC_GRAD_RTOL_FRAC, OCC_GRAD_ATOL_FRAC, OCC_LOSS_RTOL = 1e-2, 1e-4, 1e-5
+OCC_TRAIN_STEPS = 10
+
+
+def occupancy_train_phase(chk: Checker, card: str):
+    """Phase 19: BEVDet-Occ trained at the reference width (see the module
+    docstring). Returns (launches on the training path, launches on the
+    training CLI, {kernel: (device ms, launches) of a profiled step},
+    problems)."""
+    import io
+    import shutil
+
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs.stage3_configs import occ_configs
+    from presight_tpu_torch.models.layers import init_weights
+    from presight_tpu_torch.occupancy import BEVDetOcc
+    from presight_tpu_torch.occupancy import bev_pool as PB
+    from presight_tpu_torch.occupancy import view_transformer as PV
+    from presight_tpu_torch.scripts import train_occ
+    from presight_tpu_torch.utils.ema import ema_init
+
+    problems = []
+    out = OUT_DIR / "occupancy_train"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    dev = torch.device("cuda")
+    cfg = occ_configs[OCC_CONFIG]()
+    model = init_weights(BEVDetOcc(cfg, device=dev), torch.Generator().manual_seed(SEED))
+    geo, _, _ = occ_rig(cfg, dev)
+    rng = np.random.RandomState(SEED + 19)
+    H, W = cfg.input_size
+    gx, gy, gz = cfg.grid_size()
+    prior_root = OUT_DIR / "occupancy" / "synthetic"
+    if not prior_root.exists():
+        write_city_prior(prior_root, rng, [1200.0, 850.0, 0.0])
+    priors, _ = occ_priors(prior_root, cfg, [1200.0, 850.0, 0.0], dev, "phase 18's synthetic city")
+    batch = dict(zip(train_occ._MODEL_INPUTS,
+                     [torch.as_tensor(rng.rand(1, 6, 3, H, W).astype(np.float32), device=dev),
+                      *geo]), **priors)
+    batch["voxel_semantics"] = torch.as_tensor(rng.randint(0, 18, (1, gx, gy, gz)), device=dev)
+    batch["mask_camera"] = torch.as_tensor((rng.rand(1, gx, gy, gz) > 0.3).astype(np.uint8),
+                                           device=dev)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {OCC_CONFIG} in train mode: {n_params / 1e6:.2f} M parameters; batch 1 of 6 x "
+          f"{H} x {W}, labels {gx} x {gy} x {gz} with a camera mask, "
+          f"{int(priors['prior_valid'].sum())} prior voxels; no previous frame (the JAX "
+          "step's single-frame training: S2 not run)")
+
+    # (b) One step of the CLI's train_step with the kernels against the same
+    # step with the plain versions (plain=True), each from the same weights:
+    # its loss and the clipped gradients it leaves in p.grad; bev_pool_v2's
+    # output carries a grad_fn.
+    grad_fns = []
+
+    def watched(*args, **kwargs):
+        result = real_pool(*args, **kwargs)
+        grad_fns.append(result.grad_fn is not None)
+        return result
+
+    def step_from_state0(plain):
+        model.load_state_dict(state0)
+        loss, _ = train_occ.train_step(model, train_occ.make_optimizer(model, 1e-4, 1e-2),
+                                       ema_init(model), batch, plain=plain)
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        return float(loss), grads
+
+    real_pool = PV.bev_pool_v2
+    PV.bev_pool_v2 = watched
+    try:
+        loss_k, grads_k = step_from_state0(False)
+    finally:
+        PV.bev_pool_v2 = real_pool
+    loss_p, grads_p = step_from_state0(True)
+    _, grads_p2 = step_from_state0(True)
+    torch.cuda.synchronize()
+    largest = max(float(g.abs().max()) for g in grads_p.values())
+
+    def worst_leaf(grads, label):
+        worst, worst_name, bad = 0.0, None, []
+        for name, gp in grads_p.items():
+            g = grads.get(name)
+            if g is None:
+                bad.append(f"{name} has no gradient {label}")
+                continue
+            err = float((g - gp).abs().max())
+            tol = OCC_GRAD_RTOL_FRAC * float(gp.abs().max()) + OCC_GRAD_ATOL_FRAC * largest
+            if err / tol > worst:
+                worst, worst_name = err / tol, name
+            if not err <= tol:
+                bad.append(f"{name}: max_abs_err {err:.3e} > {tol:.3e}")
+        return worst, worst_name, bad
+
+    worst, worst_name, bad = worst_leaf(grads_k, "with the kernels")
+    spread, spread_name, _ = worst_leaf(grads_p2, "in a second plain step")
+    loss_ok = abs(loss_k - loss_p) <= OCC_LOSS_RTOL * abs(loss_p)
+    ok = not bad and loss_ok and set(grads_k) == set(grads_p) and grad_fns == [True]
+    print(f"  one step, kernels vs plain versions on the card: loss {loss_k:.7f} vs "
+          f"{loss_p:.7f} (rtol {OCC_LOSS_RTOL:g}); {len(grads_p)} gradient leaves, largest "
+          f"{largest:.3e}, worst leaf {worst_name} at {worst:.4f} of its tolerance (rtol "
+          f"{OCC_GRAD_RTOL_FRAC:g} of the leaf's largest + {OCC_GRAD_ATOL_FRAC:g} of the largest); "
+          f"two plain steps: worst leaf {spread_name} at {spread:.4f}; bev_pool_v2 output "
+          f"grad_fn {grad_fns} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        problems.append("one step with the kernels differs from the plain step: "
+                        + "; ".join(bad[:5] or [f"loss {loss_k} vs {loss_p}, grad_fn {grad_fns}"]))
+    del grads_k, grads_p, grads_p2
+
+    # The main path, counted: OCC_TRAIN_STEPS steps of the CLI's train_step
+    # on the fixed batch from the seeded weights, the first recording S1b's
+    # inputs; each step timed on the host clock to a synchronize.
+    model.load_state_dict(state0)
+    optimizer = train_occ.make_optimizer(model, 1e-4, 1e-2)
+    ema = ema_init(model)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with recording_calls({"s1b": (PB, "bev_pool_bwd", lambda *a: True, 0)}) as rec:
+        for i in range(OCC_TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, ema = train_occ.train_step(model, optimizer, ema, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(times[1:5])
+    print(f"  {OCC_TRAIN_STEPS} steps on one batch: losses "
+          f"{[round(v, 5) for v in losses]}; launches "
+          f"{ {k: launches[k] for k in OCC_KERNEL_INFO} }")
+    print(f"  training step ({card}), host clock to a synchronize: first {times[0] * 1e3:.1f} ms, "
+          f"steady {steady * 1e3:.1f} ms (median of steps 2-5: "
+          f"{[round(t * 1e3, 1) for t in times[1:5]]}); peak memory {peak:.3f} GiB")
+    finite = all(np.isfinite(losses)) and all(bool(torch.isfinite(p).all())
+                                              for p in model.parameters())
+    if not finite or not losses[-1] < losses[0]:
+        problems.append(f"the loss did not fall over {OCC_TRAIN_STEPS} steps, or a value is not "
+                        f"finite: {losses}")
+    for name in ("bev_pool_fwd", "bev_pool_bwd"):
+        if launches[name] != OCC_TRAIN_STEPS:
+            problems.append(f"{name} launched {launches[name]} times in {OCC_TRAIN_STEPS} steps")
+    if launches["stereo_cost_volume_fwd"]:
+        problems.append("S2 ran in single-frame training")
+
+    # (a) S1b against its plain version on the first step's recorded inputs.
+    if "s1b" not in rec:
+        problems.append("no S1b inputs were recorded")
+        return launches, {}, {}, problems
+    args = rec["s1b"][:7]
+    depth_in, feat_in, coor_in, g_in, lb, iv, grid = args
+    got = PB.bev_pool_bwd(*args)
+    want = PB.bev_pool_v2_bwd_plain(*args)
+    for label, a, b in (("d depth", got[0], want[0]), ("d feat", got[1], want[1])):
+        chk.close("bev_pool_bwd", f"training step {label}", a, b,
+                  S1B_ATOL_FRAC * float(b.abs().max()), S1B_RTOL)
+    ranks = PB.voxel_ranks(coor_in, lb, iv, grid)
+    cells = gx * gy * gz
+    inside = int((ranks < cells).sum())
+    outside_zero = bool((got[0][ranks == cells] == 0).all())
+    if not outside_zero:
+        problems.append("S1b gave a point outside the grid a nonzero d depth")
+    occupied = int(torch.unique(ranks[ranks < cells]).numel())
+    C = feat_in.shape[-1]
+    print(f"  bev_pool_bwd inputs: g {tuple(g_in.shape)} (largest {float(g_in.abs().max()):.3e}), "
+          f"{inside} of {ranks.numel()} points in the grid over {occupied} voxels; outside "
+          f"points' d depth all 0: {outside_zero}")
+    chk.time("bev_pool_bwd", lambda: PB.bev_pool_bwd(*args),
+             lambda: PB.bev_pool_v2_bwd_plain(*args))
+    flat = torch.cat([g_in.permute(0, 2, 3, 4, 1).reshape(-1, C), g_in.new_zeros((1, C))])
+    idx = ranks.reshape(-1).long()
+    chk.library["bev_pool_bwd"] = time_ms(lambda: flat.index_select(0, idx))
+    # The bytes it must move: depth, feat and coor once, g's rows at the
+    # occupied voxels, d depth and d feat; 4 flops a point inside and channel.
+    nbytes = 4.0 * (2 * depth_in.numel() + 2 * feat_in.numel() + coor_in.numel()
+                    + occupied * C)
+    chk.bounds["bev_pool_bwd"] = bound(nbytes, 4.0 * inside * C)
+    k_ms, p_ms = chk.times["bev_pool_bwd"]
+    b_ms, b_by = chk.bounds["bev_pool_bwd"]
+    print(f"  time bev_pool_bwd ({card}): kernel {k_ms:.4f} ms (device "
+          f"{chk.device['bev_pool_bwd']:.4f} ms), plain {p_ms:.4f} ms, library (index_select of "
+          f"the rows) {chk.library['bev_pool_bwd']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+          f"{b_ms / chk.device['bev_pool_bwd']:.3f}")
+    del rec, args, got, want, flat, idx, ranks, depth_in, feat_in, coor_in, g_in
+
+    # (d) One profiled step.
+    torch.cuda.empty_cache()
+    step = profile_device("profiled training step",
+                          lambda: train_occ.train_step(model, optimizer, ema, batch),
+                          "occ_train_profile.txt", names=("bev_pool_bwd", "bev_pool_fwd"))
+    step = {name: (step.get(name, (0.0, 0))[0], kernels.LAUNCHES[name])
+            for name in OCC_KERNEL_INFO}
+    del model, optimizer, ema, batch, state0
+    torch.cuda.empty_cache()
+
+    # (e) The CLI as a user calls it: 2 iterations at the reference config
+    # on the toy batches of its seed, then --eval-ckpt on the pickle.
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_occ.main(["--config", OCC_CONFIG, "--iters", "2", "--out", str(out / "cli")])
+    torch.cuda.synchronize()
+    cli_launches = dict(kernels.LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    ckpt = out / "cli" / "occ-step-000000002.pkl"
+    print(f"  train_occ --config {OCC_CONFIG} --iters 2 ({card}): exit {rc} in "
+          f"{time.perf_counter() - t0:.2f} s; {lines}; launches "
+          f"{ {k: cli_launches[k] for k in OCC_KERNEL_INFO} }")
+    if rc != 0 or not ckpt.exists() or any(cli_launches[k] != 2 for k in ("bev_pool_fwd",
+                                                                           "bev_pool_bwd")):
+        problems.append(f"train_occ training exited {rc}, wrote no {ckpt.name} or did not "
+                        "launch S1 and S1b twice")
+        return launches, cli_launches, step, problems
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_occ.main(["--config", OCC_CONFIG, "--eval-ckpt", str(ckpt)])
+    lines = buf.getvalue().splitlines()
+    print(f"  train_occ --eval-ckpt on it: exit {rc}; {lines[-1] if lines else None}")
+    if rc != 0 or len(lines) != 19 or not lines[-1].startswith("mIoU"):
+        problems.append(f"train_occ --eval-ckpt on the trained pickle exited {rc}: {lines[-2:]}")
+    return launches, cli_launches, step, problems
+
+
+def occ_entries(chk: Checker, paths, frame, step):
+    """The kernels JSON line's entries of S1, S2 and S1b: launches in all
+    and by path (serve_occ, serve_occ_cli, train_occ, train_occ_cli), and
+    device time and launches in a profiled frame (serving) and step
+    (training)."""
     return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-             "launches": launches[name],
-             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+             "launches": sum(counts.get(name, 0) for counts in paths.values()),
+             "launches_by_path": {path: counts.get(name, 0) for path, counts in paths.items()},
              "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
              "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
              "bound_ms": chk.bounds[name][0], "bound_by": chk.bounds[name][1],
              "library_ms": chk.library.get(name), "frame_ms": frame[name][0],
-             "frame_launches": frame[name][1]}
+             "frame_launches": frame[name][1], "step_ms": step[name][0],
+             "step_launches": step[name][1]}
             for name, (src, replaces) in OCC_KERNEL_INFO.items()]
 
 
@@ -2988,14 +3262,25 @@ def main() -> int:
             print("  ptxas:", line.strip())
     sass_report(lib_path)
     if "--occupancy-only" in sys.argv[1:]:
-        print("phase 18 alone (--occupancy-only): occupancy serving")
+        print("phases 18 and 19 alone (--occupancy-only): occupancy serving and training")
         chk = Checker()
         occ_launches, occ_cli_launches, frame, problems = occupancy_phase(chk, card, None)
         problems += chk.failures
         if problems:
             print("phase 18 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
             return 1
-        print(json.dumps({"kernels": occ_entries(chk, occ_launches, occ_cli_launches, frame)}))
+        torch.cuda.empty_cache()
+        print(f"phase 19: {OCC_CONFIG} trained on the card "
+              f"({time.perf_counter() - t_start:.0f} s in)")
+        train_launches, train_cli_launches, step, problems = occupancy_train_phase(chk, card)
+        problems += chk.failures
+        if problems:
+            print("phase 19 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+            return 1
+        print(f"phases 1, 2, 18 and 19 passed in {time.perf_counter() - t_start:.0f} s")
+        occ_paths = {"serve_occ": occ_launches, "serve_occ_cli": occ_cli_launches,
+                     "train_occ": train_launches, "train_occ_cli": train_cli_launches}
+        print(json.dumps({"kernels": occ_entries(chk, occ_paths, frame, step)}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3238,6 +3523,14 @@ def main() -> int:
     if problems:
         print("phase 18 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
+    torch.cuda.empty_cache()
+    print(f"phase 19: {OCC_CONFIG} trained on the card ({time.perf_counter() - t_start:.0f} s in)")
+    train_occ_launches, train_occ_cli_launches, occ_step, problems = occupancy_train_phase(
+        chk, card)
+    problems += chk.failures
+    if problems:
+        print("phase 19 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -3259,7 +3552,9 @@ def main() -> int:
          "render_reference_launches": render_ref[name][1],
          "step_disk_ms": step_disk[name][0], "step_disk_launches": step_disk[name][1]}
         for name, (src, replaces) in KERNEL_INFO.items()]
-        + occ_entries(chk, occ_launches, occ_cli_launches, frame)}))
+        + occ_entries(chk, {"serve_occ": occ_launches, "serve_occ_cli": occ_cli_launches,
+                            "train_occ": train_occ_launches,
+                            "train_occ_cli": train_occ_cli_launches}, frame, occ_step)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ running_var.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,16 +101,18 @@ def occ_state_from_flax(variables_np: Any, model: torch.nn.Module) -> Dict[str, 
     return filled
 
 
-def occ_state_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
-    """The port model's tensors -> a flax ``{"params", "batch_stats"}``
-    numpy tree (the inverse of occ_state_from_flax), as the JAX occupancy
-    CLI pickles it."""
+def occ_state_to_flax(model: torch.nn.Module,
+                      state: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The port model's tensors (or ``state``, a state_dict of the model,
+    such as its EMA) -> a flax ``{"params", "batch_stats"}`` numpy tree of
+    float32 arrays (the inverse of occ_state_from_flax), as the JAX
+    occupancy CLI pickles it."""
     from .models.layers import BatchNorm
 
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     stats = {v: k for k, v in _OCC_STAT_LEAVES.items()}
     norms = {name for name, m in model.named_modules() if isinstance(m, BatchNorm)}
-    for key, t in model.state_dict().items():
+    for key, t in (model.state_dict() if state is None else state).items():
         *mods, leaf = key.split(".")
         owner = ".".join(mods)
         a = t.detach().cpu().numpy().astype(np.float32)

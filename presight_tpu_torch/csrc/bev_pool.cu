@@ -26,11 +26,8 @@
 // sort), then one pass over the output in whole lines. One memset and four
 // launches, on one int32 scratch buffer the wrapper allocates per call
 // (bev_pool_scratch_ints):
-//   count  one thread a point: the voxel arithmetic, exactly the plain
-//          version's (floorf(__fsub_rn(c, lb) / iv) with IEEE division, no
-//          reciprocal), so a point on a voxel face lands where the plain
-//          version puts it; its rank ((b * Z + z) * Y + y) * X + x, or -1
-//          outside; its arrival slot in the voxel by an integer atomicAdd
+//   count  one thread a point: its rank by voxel_rank (the plain version's
+//          voxel arithmetic exactly), -1 outside; its arrival slot in the voxel by an integer atomicAdd
 //          on the voxel's count (exact; the order of arrival is not).
 //   scan   the exclusive scan of the counts in tiles of 2048 voxels; the
 //          last tile to finish scans the tiles' totals, so a voxel's first
@@ -53,7 +50,8 @@
 //          voxel of more than 256 points is sorted in place in perm (a
 //          warp bitonic network) and summed the same way.
 // Every call sorts its intervals again: nothing survives from one call to
-// the next, and a backward pass can take the same scratch layout and sums.
+// the next. The backward (S1b, below) needs no sort: it gathers g by each
+// point's voxel_rank, pixel by pixel.
 #include "common.cuh"
 
 namespace {
@@ -102,24 +100,33 @@ Scratch scratch_layout(int32_t* base, int64_t n, int64_t cells) {
   return s;
 }
 
+// The plain version's voxel arithmetic: floorf(__fsub_rn(c, lb) / iv) with
+// IEEE division (no reciprocal), so a point on a voxel face lands where the
+// plain version puts it. Returns the flat rank ((b * Z + z) * Y + y) * X + x
+// of point c of batch b, or -1 outside the grid. S1's count pass and S1b
+// both take it.
+__device__ __forceinline__ int32_t voxel_rank(const float* c, int b, float lbx, float lby,
+                                              float lbz, float ivx, float ivy, float ivz, int gx,
+                                              int gy, int gz) {
+  const float vx = floorf(__fdiv_rn(__fsub_rn(c[0], lbx), ivx));
+  const float vy = floorf(__fdiv_rn(__fsub_rn(c[1], lby), ivy));
+  const float vz = floorf(__fdiv_rn(__fsub_rn(c[2], lbz), ivz));
+  if (!(vx >= 0.0f && vx < (float)gx && vy >= 0.0f && vy < (float)gy && vz >= 0.0f &&
+        vz < (float)gz)) {
+    return -1;
+  }
+  return ((b * gz + (int)vz) * gy + (int)vy) * gx + (int)vx;
+}
+
 __global__ void __launch_bounds__(kThreads) bev_pool_count_kernel(
     const float* __restrict__ coor, int64_t n, int64_t per_batch, float lbx, float lby, float lbz,
     float ivx, float ivy, float ivz, int gx, int gy, int gz, int32_t* __restrict__ counts,
     int32_t* __restrict__ rank, int32_t* __restrict__ slot) {
   for (int64_t p = blockIdx.x * (int64_t)kThreads + threadIdx.x; p < n;
        p += (int64_t)gridDim.x * kThreads) {
-    const float* c = coor + p * 3;
-    const float vx = floorf(__fdiv_rn(__fsub_rn(c[0], lbx), ivx));
-    const float vy = floorf(__fdiv_rn(__fsub_rn(c[1], lby), ivy));
-    const float vz = floorf(__fdiv_rn(__fsub_rn(c[2], lbz), ivz));
-    const bool inside = vx >= 0.0f && vx < (float)gx && vy >= 0.0f && vy < (float)gy &&
-                        vz >= 0.0f && vz < (float)gz;
-    int32_t r = -1;
-    if (inside) {
-      const int b = (int)(p / per_batch);
-      r = ((b * gz + (int)vz) * gy + (int)vy) * gx + (int)vx;
-      slot[p] = atomicAdd(counts + r, 1);
-    }
+    const int32_t r = voxel_rank(coor + p * 3, (int)(p / per_batch), lbx, lby, lbz, ivx, ivy,
+                                 ivz, gx, gy, gz);
+    if (r >= 0) slot[p] = atomicAdd(counts + r, 1);
     rank[p] = r;
   }
 }
@@ -492,4 +499,156 @@ PTK_EXPORT int bev_pool_fwd(const float* depth, const float* feat, const float* 
       return launch_sum<32>(smem, st, depth, feat, s, cells, cells_per_batch, C, (int)dhw,
                             (int)hw, out);
   }
+}
+
+// ---------------------------------------------------------------------------
+// S1b bev_pool_bwd: the gradient of S1.
+//
+// Replaces no TPU kernel: the JAX package takes it by autodiff of its XLA
+// segment_sum (presight_tpu/occupancy/bev_pool.py:29; the transpose of a
+// segment sum is a gather), the reference by its own bev_pool_v2 backward
+// kernel.
+//
+// Contract: for incoming g (B, C, Z, Y, X) and point p of pixel
+// pix = (b, n, h, w) in voxel v(p) (the forward's arithmetic),
+//   d depth[p]      = sum_c feat[pix, c] * g[b, c, v(p)]   (0 outside the grid)
+//   d feat[pix, c]  = sum_d depth[pix, d] * g[b, c, v(pix, d)]
+// Every output element is written once; no atomics, so two calls are
+// bitwise equal.
+//
+// What bounds it on an H100: device memory. The work is small (4 flops a
+// point and channel); the bytes it must move are depth, feat and coor once,
+// the rows of g at the occupied voxels, and the two gradients (about 26 MB
+// at the reference shapes, where g itself is 81.9 MB of mostly empty
+// voxels). g arrives channel-major: a point's 32 channels lie a plane
+// (640,000 floats) apart, 32 sectors for one point.
+//
+// Design: one launch, a warp a pixel, lane = channel (C up to 128 in
+// chunks of 32, in registers), the pixel's bins in ascending order, 32 at a
+// time: lane j first resolves bin d0 + j's voxel (voxel_rank, as the count
+// pass does) and depth, then the warp walks the 32 bins, kAhead
+// voxels' channels in flight, adding depth * g into d feat in bin order
+// (the plain version's order) and reducing feat . g over the lanes into
+// d depth, which lane j writes for bin d0 + j. The gather reads g's channel
+// planes where they lie: a first pass transposing g to (B, Z, Y, X, C)
+// rows, so that a point's channels are one 128-byte line, moved all of g
+// twice and was slower on the rig.
+namespace {
+
+constexpr int kBins = 32;  // bins a warp resolves at once, one a lane
+
+template <int kChunks>
+__global__ void __launch_bounds__(kThreads) bev_pool_bwd_kernel(
+    const float* __restrict__ depth, const float* __restrict__ feat,
+    const float* __restrict__ coor, const float* __restrict__ g, int64_t pixels, int N, int D,
+    int64_t hw, int C, float lbx, float lby, float lbz, float ivx, float ivy, float ivz, int gx,
+    int gy, int gz, float* __restrict__ d_depth, float* __restrict__ d_feat) {
+  const int lane = threadIdx.x & 31;
+  const int64_t cells_per_batch = (int64_t)gx * gy * gz;
+  for (int64_t pix = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); pix < pixels;
+       pix += (int64_t)gridDim.x * kWarps) {
+    const int64_t bn = pix / hw, s = pix - bn * hw;
+    const int b = (int)(bn / N);
+    float f[kChunks], acc[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = k * 32 + lane;
+      f[k] = c < C ? feat[pix * C + c] : 0.0f;
+      acc[k] = 0.0f;
+    }
+    const int64_t first = bn * D * hw + s;  // the pixel's point of bin 0; bins lie hw apart
+    for (int d0 = 0; d0 < D; d0 += kBins) {
+      int32_t cell = -1;  // lane j: bin d0 + j's voxel (all batches), -1 outside
+      float dep = 0.0f;
+      if (d0 + lane < D) {
+        const int64_t p = first + (int64_t)(d0 + lane) * hw;
+        cell = voxel_rank(coor + p * 3, b, lbx, lby, lbz, ivx, ivy, ivz, gx, gy, gz);
+        if (cell >= 0) dep = depth[p];
+      }
+      const int m = min(kBins, D - d0);
+      float mine = 0.0f;  // lane j: d depth of bin d0 + j
+      for (int j0 = 0; j0 < m; j0 += kAhead) {
+        float gv[kAhead][kChunks], dj[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          const int j = j0 + u;
+          const int32_t at = __shfl_sync(kFull, cell, j & 31);
+          dj[u] = __shfl_sync(kFull, dep, j & 31);
+          const int64_t bb = at / cells_per_batch;
+#pragma unroll
+          for (int k = 0; k < kChunks; ++k) {
+            const int c = k * 32 + lane;
+            float v = 0.0f;
+            if (j < m && at >= 0 && c < C) {
+              v = g[(bb * C + c) * cells_per_batch + (at - bb * cells_per_batch)];
+            }
+            gv[u][k] = v;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          if (j0 + u < m) {
+            float part = 0.0f;
+#pragma unroll
+            for (int k = 0; k < kChunks; ++k) {
+              acc[k] = __fadd_rn(acc[k], __fmul_rn(dj[u], gv[u][k]));
+              part = __fadd_rn(part, __fmul_rn(f[k], gv[u][k]));
+            }
+            part = warp_sum(part);
+            if (lane == j0 + u) mine = part;
+          }
+        }
+      }
+      if (d0 + lane < D) d_depth[first + (int64_t)(d0 + lane) * hw] = mine;
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = k * 32 + lane;
+      if (c < C) d_feat[pix * C + c] = acc[k];
+    }
+  }
+}
+
+template <int kChunks>
+int launch_bwd(cudaStream_t st, const float* depth, const float* feat, const float* coor,
+               const float* g, int64_t pixels, int N, int D, int64_t hw, int C, float lbx,
+               float lby, float lbz, float ivx, float ivy, float ivz, int gx, int gy, int gz,
+               float* d_depth, float* d_feat) {
+  unsigned int blocks = ceil_div64(pixels, kWarps);
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  bev_pool_bwd_kernel<kChunks><<<blocks, kThreads, 0, st>>>(
+      depth, feat, coor, g, pixels, N, D, hw, C, lbx, lby, lbz, ivx, ivy, ivz, gx, gy, gz,
+      d_depth, d_feat);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// depth (B, N, D, H, W) f32, feat (B, N, H, W, C) f32, coor (B, N, D, H, W, 3)
+// f32, g (B, C, gz, gy, gx) f32, contiguous; hw = H * W; lb, iv the grid's
+// lower bound and interval (x, y, z); d_depth and d_feat shaped as depth
+// and feat, every element written. C up to 128.
+PTK_EXPORT int bev_pool_bwd(const float* depth, const float* feat, const float* coor,
+                            const float* g, int B, int N, int D, int64_t hw, int C, float lbx,
+                            float lby, float lbz, float ivx, float ivy, float ivz, int gx, int gy,
+                            int gz, float* d_depth, float* d_feat, void* stream) {
+  const int64_t cells = (int64_t)B * gx * gy * gz;
+  const int64_t points = (int64_t)B * N * D * hw;
+  if (C < 1 || C > 128 || B < 1 || N < 1 || D < 1 || hw < 1 || gx < 1 || gy < 1 || gz < 1 ||
+      points >= INT32_MAX || cells >= INT32_MAX - kScanTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t pixels = (int64_t)B * N * hw;
+  const int chunks = (C + 31) / 32;
+  if (chunks == 1) {
+    return launch_bwd<1>(st, depth, feat, coor, g, pixels, N, D, hw, C, lbx, lby, lbz, ivx, ivy,
+                         ivz, gx, gy, gz, d_depth, d_feat);
+  }
+  if (chunks == 2) {
+    return launch_bwd<2>(st, depth, feat, coor, g, pixels, N, D, hw, C, lbx, lby, lbz, ivx, ivy,
+                         ivz, gx, gy, gz, d_depth, d_feat);
+  }
+  return launch_bwd<4>(st, depth, feat, coor, g, pixels, N, D, hw, C, lbx, lby, lbz, ivx, ivy,
+                       ivz, gx, gy, gz, d_depth, d_feat);
 }

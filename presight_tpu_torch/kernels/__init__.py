@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
            "prop_grid_density_fwd", "hash_encode_bwd", "mlp_blocks_bwd",
-           "volume_render_bwd", "sorted_accum", "bev_pool_fwd", "stereo_cost_volume_fwd")
+           "volume_render_bwd", "sorted_accum", "bev_pool_fwd", "stereo_cost_volume_fwd",
+           "bev_pool_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -71,6 +72,10 @@ _ARGTYPES = {
     # interval (x, y, z), X, Y, Z, scratch, out, stream
     "bev_pool_fwd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _F, _F, _F,
                      _I, _I, _I, _P, _P, _P],
+    # depth, feat, coor, g, B, N, D, H*W, C, lb (x, y, z), interval (x, y, z),
+    # X, Y, Z, d_depth, d_feat, stream
+    "bev_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I64, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I,
+                     _P, _P, _P],
     # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
     "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }

@@ -11,8 +11,10 @@ name alone.
   ``(pad_total // 2, pad_total - pad_total // 2)``, so a stride-2 3x3 conv
   on an even size pads (0, 1), not (1, 1) (``nn.Conv2d(padding=1)`` would
   shift every strided feature by one pixel).
-* :class:`BatchNorm` is ``flax.linen.BatchNorm(use_running_average=True)``
-  (epsilon 1e-5): the serving path runs it in eval mode only.
+* :class:`BatchNorm` is ``flax.linen.BatchNorm`` (epsilon 1e-5, momentum
+  0.99): in eval mode it normalises with the running statistics; in train
+  mode with the batch's mean and biased variance, and updates the running
+  statistics as flax's ``mutable=["batch_stats"]`` result does.
 * :class:`Dense` is ``flax.linen.Dense``; its weight is stored (out, in) as
   ``nn.Linear``'s.
 
@@ -68,7 +70,17 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm in eval mode over channel dim 1."""
+    """flax.linen.BatchNorm over channel dim 1.
+
+    Train mode follows flax, not ``F.batch_norm(training=True)``: the mean
+    and the biased variance over every axis but the channel, the variance
+    as flax's ``use_fast_variance`` takes it (E[x^2] - E[x]^2, clamped at
+    0), and the running update ``ra = 0.99 ra + 0.01 stat`` with that
+    biased variance (torch would take the unbiased one and momentum 0.1).
+    """
+
+    MOMENTUM = 0.99
+    EPS = 1e-5
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -78,11 +90,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("BatchNorm: the occupancy port serves in eval mode only "
-                                      "(training is ROADMAP Queue 1 item 3)")
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=1e-5)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.EPS)
+        dims = [0, *range(2, x.dim())]
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.EPS) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
 class Dense(nn.Linear):

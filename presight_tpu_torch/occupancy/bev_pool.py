@@ -10,6 +10,13 @@ S1 (csrc/bev_pool.cu: a counting sort by voxel in its own passes, then the
 reference's interval sum in point order) on CUDA tensors, and
 :func:`bev_pool_v2_plain` (index_add_ of the materialised rows) on CPU
 tensors or with ``plain=True``.
+
+Its gradient (the transpose of the segment sum is a gather) is kernel S1b
+(csrc/bev_pool.cu ``bev_pool_bwd``) on CUDA tensors and
+:func:`bev_pool_v2_bwd_plain` otherwise, through one autograd Function:
+d depth[p] = sum_c feat[pix(p), c] * g[vox(p), c] and d feat[pix, c] =
+sum_d depth[pix, d] * g[vox(pix, d), c], 0 for a point outside the grid.
+``coor`` gets no gradient (in JAX the floor makes it zero).
 """
 
 from __future__ import annotations
@@ -56,34 +63,51 @@ def bev_pool_v2_plain(depth, feat, coor, grid_lower_bound, grid_interval, grid_s
     return out[:-1].reshape(B, gz, gy, gx, C).permute(0, 4, 1, 2, 3).contiguous()
 
 
-def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor, coor: torch.Tensor,
-                grid_lower_bound: Sequence[float], grid_interval: Sequence[float],
-                grid_size: Tuple[int, int, int], plain: bool = False) -> torch.Tensor:
-    """Pool depth-weighted image features into the BEV voxel grid.
-
-    depth (B, N, D, H, W) (softmaxed), feat (B, N, H, W, C), coor
-    (B, N, D, H, W, 3) in ego coordinates; grid_size (X, Y, Z). Returns
-    (B, C, Z, Y, X) f32. Wrapper of S1: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors or with ``plain=True``.
-    """
-    if plain or depth.device.type == "cpu":
-        return bev_pool_v2_plain(depth, feat, coor, grid_lower_bound, grid_interval, grid_size)
+def bev_pool_v2_bwd_plain(depth, feat, coor, g, grid_lower_bound, grid_interval, grid_size):
+    """Plain version of S1b, written out (no autograd): g (B, C, Z, Y, X)
+    -> (d depth (B, N, D, H, W), d feat (B, N, H, W, C)). Gathers g's rows by
+    voxel rank from a (B*Z*Y*X + 1, C) buffer whose last row is a zero dump
+    for the points outside the grid, then takes the two contractions."""
     B, N, D, H, W = depth.shape
     C = feat.shape[-1]
+    rank = voxel_ranks(coor, grid_lower_bound, grid_interval, grid_size).reshape(-1)
+    flat = torch.cat([g.permute(0, 2, 3, 4, 1).reshape(-1, C), g.new_zeros((1, C))])
+    rows = flat.index_select(0, rank.long()).reshape(B, N, D, H, W, C)
+    d_depth = (rows * feat[:, :, None]).sum(-1)
+    d_feat = (depth[..., None] * rows).sum(2)
+    return d_depth, d_feat
+
+
+def _check_inputs(name, depth, feat, coor, grid_size):
+    B, N, D, H, W = depth.shape
     if feat.shape[:2] != (B, N) or feat.shape[2:4] != (H, W) or coor.shape != (B, N, D, H, W, 3):
-        raise ValueError(f"bev_pool_v2: shapes depth {tuple(depth.shape)}, feat "
+        raise ValueError(f"{name}: shapes depth {tuple(depth.shape)}, feat "
                          f"{tuple(feat.shape)}, coor {tuple(coor.shape)} do not agree")
     for t in (depth, feat, coor):
         if t.dtype != torch.float32:
-            raise TypeError("bev_pool_v2: float32 depth, feat and coor expected")
-    kernels.require_cuda("bev_pool_v2", depth, feat, coor)
+            raise TypeError(f"{name}: float32 depth, feat and coor expected")
+    kernels.require_cuda(name, depth, feat, coor)
     gx, gy, gz = (int(g) for g in grid_size)
     cells = B * gz * gy * gx
-    n = depth.numel()
-    if n >= 2**31 - 1 or cells >= 2**31 - 4096:
-        raise ValueError("bev_pool_v2: more than 2^31 points or cells")
+    if depth.numel() >= 2**31 - 1 or cells >= 2**31 - 4096:
+        raise ValueError(f"{name}: more than 2^31 points or cells")
+    return cells
+
+
+def _grid_args(grid_lower_bound, grid_interval):
     lb = [float(v) for v in np.asarray(grid_lower_bound, np.float32)]
     iv = [float(v) for v in np.asarray(grid_interval, np.float32)]
+    return lb, iv
+
+
+def bev_pool_fwd(depth, feat, coor, grid_lower_bound, grid_interval, grid_size) -> torch.Tensor:
+    """S1 on CUDA tensors: (B, C, Z, Y, X) f32. Raises if it cannot launch."""
+    cells = _check_inputs("bev_pool_v2", depth, feat, coor, grid_size)
+    B, N, D, H, W = depth.shape
+    C = feat.shape[-1]
+    gx, gy, gz = (int(g) for g in grid_size)
+    n = depth.numel()
+    lb, iv = _grid_args(grid_lower_bound, grid_interval)
     lib = kernels.lib()
     scratch = torch.empty(lib.bev_pool_scratch_ints(n, cells), dtype=torch.int32,
                           device=depth.device)
@@ -94,6 +118,69 @@ def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor, coor: torch.Tensor,
     kernels.check("bev_pool_fwd", code)
     kernels.LAUNCHES["bev_pool_fwd"] += 1
     return out
+
+
+def bev_pool_bwd(depth, feat, coor, g, grid_lower_bound, grid_interval, grid_size):
+    """S1b on CUDA tensors: g (B, C, Z, Y, X) contiguous -> (d depth, d feat),
+    every element written. Raises if it cannot launch."""
+    _check_inputs("bev_pool_v2 backward", depth, feat, coor, grid_size)
+    B, N, D, H, W = depth.shape
+    C = feat.shape[-1]
+    gx, gy, gz = (int(v) for v in grid_size)
+    if g.shape != (B, C, gz, gy, gx) or g.dtype != torch.float32:
+        raise ValueError(f"bev_pool_v2 backward: g {tuple(g.shape)} {g.dtype}, expected "
+                         f"{(B, C, gz, gy, gx)} float32")
+    if C > 128:
+        raise ValueError(f"bev_pool_v2 backward: C = {C} > 128, the most S1b takes")
+    kernels.require_cuda("bev_pool_v2 backward", depth, g)
+    lb, iv = _grid_args(grid_lower_bound, grid_interval)
+    d_depth = torch.empty_like(depth)
+    d_feat = torch.empty_like(feat)
+    code = kernels.lib().bev_pool_bwd(
+        depth.data_ptr(), feat.data_ptr(), coor.data_ptr(), g.data_ptr(), B, N, D, H * W, C,
+        *lb, *iv, gx, gy, gz, d_depth.data_ptr(), d_feat.data_ptr(), kernels.stream())
+    kernels.check("bev_pool_bwd", code)
+    kernels.LAUNCHES["bev_pool_bwd"] += 1
+    return d_depth, d_feat
+
+
+class _BevPool(torch.autograd.Function):
+    """S1 forward, S1b backward (their plain versions on the CPU or with
+    ``plain``)."""
+
+    @staticmethod
+    def forward(ctx, depth, feat, coor, lb, iv, grid_size, plain):
+        ctx.save_for_backward(depth, feat, coor)
+        ctx.grid, ctx.plain = (lb, iv, grid_size), plain
+        if plain or depth.device.type == "cpu":
+            return bev_pool_v2_plain(depth, feat, coor, lb, iv, grid_size)
+        return bev_pool_fwd(depth, feat, coor, lb, iv, grid_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        depth, feat, coor = ctx.saved_tensors
+        # A slice of torch.cat's backward (the temporal branch) is strided.
+        g = g.contiguous()
+        if ctx.plain or g.device.type == "cpu":
+            d_depth, d_feat = bev_pool_v2_bwd_plain(depth, feat, coor, g, *ctx.grid)
+        else:
+            d_depth, d_feat = bev_pool_bwd(depth, feat, coor, g, *ctx.grid)
+        return (d_depth if ctx.needs_input_grad[0] else None,
+                d_feat if ctx.needs_input_grad[1] else None, None, None, None, None, None)
+
+
+def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor, coor: torch.Tensor,
+                grid_lower_bound: Sequence[float], grid_interval: Sequence[float],
+                grid_size: Tuple[int, int, int], plain: bool = False) -> torch.Tensor:
+    """Pool depth-weighted image features into the BEV voxel grid.
+
+    depth (B, N, D, H, W) (softmaxed), feat (B, N, H, W, C), coor
+    (B, N, D, H, W, 3) in ego coordinates; grid_size (X, Y, Z). Returns
+    (B, C, Z, Y, X) f32, differentiable in depth and feat. Wrapper of S1 and
+    S1b: the CUDA kernels on CUDA tensors, the plain versions on CPU
+    tensors or with ``plain=True``.
+    """
+    return _BevPool.apply(depth, feat, coor, grid_lower_bound, grid_interval, grid_size, plain)
 
 
 def bev_pool_v2_reference(depth, feat, coor, grid_lower_bound, grid_interval,

@@ -1,4 +1,4 @@
-"""BEVDet-Occ serving forward, the port of presight_tpu/occupancy/
+"""BEVDet-Occ and its loss, the port of presight_tpu/occupancy/
 bevdet_occ.py (BEVStereo4DOCC: image encoder, LSS view transformer with the
 temporal stereo cost volume, temporal BEV align, voxel prior fusion, BEV
 encoder, occupancy head).
@@ -7,8 +7,9 @@ The model is built from a :class:`BEVDetOccConfig` (the flax module's
 fields) on an explicit device, with empty parameters: ``init_weights``
 (models/layers.py) fills them from a generator, ``bridge.occ_state_from_flax``
 from a JAX checkpoint. It serves in eval mode (BatchNorm on its running
-statistics); the loss and training come later (ROADMAP Queue 1 item 3).
-Convolutions run in IEEE f32 (``utils.precision.ieee_convolutions``, the
+statistics) and trains in train mode (``model.train()``: BatchNorm on the
+batch's statistics, updating the running ones as flax does) under
+:func:`occ_loss`. Convolutions run in IEEE f32 (``utils.precision.ieee_convolutions``, the
 process's setting restored after each forward).
 """
 
@@ -144,7 +145,8 @@ class OccHead(nn.Module):
 
 
 class BEVDetOcc(nn.Module):
-    """BEVDet-Occ with the PreSight prior-fusion hook, in eval mode.
+    """BEVDet-Occ with the PreSight prior-fusion hook. Built in eval mode;
+    ``model.train()`` trains it.
 
     ``forward`` takes the JAX module's inputs: imgs (B, N, 3, H, W) and the
     per-camera geometry, the voxelized priors (``prior_feats`` (B, V, 68),
@@ -192,7 +194,7 @@ class BEVDetOcc(nn.Module):
             if cfg.prior_fusion != "voxel":
                 raise NotImplementedError(
                     f"prior_fusion={cfg.prior_fusion!r} needs models/window_attention.py, "
-                    "which is not ported yet (ROADMAP Queue 1 item 3)")
+                    "which is not ported yet (ROADMAP Queue 1 item 4(c))")
             self.PriorFusion3DVoxel_0 = PriorFusion3DVoxel(
                 cfg.prior_pc_range, cfg.prior_voxel_size, bev_channels=C, out_num_z=gz,
                 out_channels=C, bev_hidden_channels=cfg.neck_channels,
@@ -271,3 +273,19 @@ class BEVDetOcc(nn.Module):
         if cfg.stereo:
             return occ, depth, curr_stereo
         return occ, depth
+
+
+def occ_loss(logits: torch.Tensor, voxel_semantics: torch.Tensor,
+             mask_camera: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Occupancy cross-entropy (bevdet_occ.py:286-301 of the JAX package):
+    flat log-softmax CE of logits (B, X, Y, Z, classes) at the integer
+    labels (B, X, Y, Z); with ``mask_camera`` (0/1) sum(ce * m) /
+    max(sum(m), 1), else the mean."""
+    num_classes = logits.shape[-1]
+    logp = torch.log_softmax(logits.reshape(-1, num_classes), dim=-1)
+    labels = voxel_semantics.reshape(-1).long()
+    ce = -logp.gather(1, labels[:, None])[:, 0]
+    if mask_camera is not None:
+        m = mask_camera.reshape(-1).to(ce.dtype)
+        return (ce * m).sum() / m.sum().clamp_min(1.0)
+    return ce.mean()

@@ -1,23 +1,41 @@
-"""Stage-3 occupancy CLI (presight_tpu/scripts/train_occ.py), its evaluation
-branch: load an ``occ-step-*.pkl`` checkpoint that the JAX CLI wrote,
-forward every batch, take the argmax over the classes and report the Occ3D
-per-class IoU and mIoU (``utils/occ_metrics.MetricMIoU``).
+"""Stage-3 occupancy CLI, the port of presight_tpu/scripts/train_occ.py:
+train BEVDet-Occ, or evaluate a checkpoint with --eval-ckpt.
+
+Training (train_occ.py:269-320 of the JAX package): each step is a
+train-mode forward (BatchNorm on the batch's statistics), the masked
+cross-entropy ``occ_loss``, the backward (S1b for the lift-splat on the
+card), global-norm clipping written as optax's rule, AdamW over the
+parameters, and the MEGVII EMA over the parameters and BatchNorm statistics
+(``utils/ema.py``). It writes ``occ-step-<iters>.pkl`` with the JAX CLI's
+tree, leaf names, shapes and dtypes (``{"params", "ema", "ema_updates",
+"iters"}``, numpy trees), which either CLI's --eval-ckpt reads. The initial
+weights come from ``init_weights`` with a ``torch.Generator`` seeded by
+--seed: flax's init from ``jax.random.PRNGKey(seed)`` cannot be reproduced
+without jax, so the two CLIs start from different weights of the same
+distributions. Two defects of the JAX step are not copied: it discards
+flax's updated ``batch_stats`` (and AdamW decays the statistics as if they
+were parameters), and with ``stereo`` it fails to unpack the model's three
+outputs; here the running statistics update and ``occ`` is the first
+output.
+
+Evaluation (--eval-ckpt): load an ``occ-step-*.pkl`` (written by either
+CLI), forward every batch, take the argmax over the classes and report the
+Occ3D per-class IoU and mIoU (``utils/occ_metrics.MetricMIoU``).
 
 Usage:
+  python -m presight_tpu_torch.scripts.train_occ --iters 50 --out outputs/occ \\
+      [--config bevdet-occ-r50d-8x4-24e_wcamprior_randomdrop] [--data-dir npz_dir]
   python -m presight_tpu_torch.scripts.train_occ --eval-ckpt occ-step-000000050.pkl \\
-      [--config bevdet-occ-r50d-8x4-24e_wcamprior_randomdrop] [--eval-params ema|raw] \\
-      [--data-dir npz_dir]
+      [--config ...] [--eval-params ema|raw] [--data-dir npz_dir]
 
-Without --data-dir it evaluates the toy batches of --seed (numpy
-RandomState, the JAX CLI's arrays); an .npz sample holds imgs, sensor2ego,
-cam2imgs, post_rots, post_trans, bda, voxel_semantics and optionally
-mask_camera and prior_feats / prior_coords / prior_valid. The checkpoint is
-a pickle of numpy trees (``{"params", "ema", "ema_updates", "iters"}``), read
-without jax. A stereo model returns three outputs; the occupancy logits are
-the first. Runs on the CUDA card; ``main(argv, device=...)`` takes another
-device. Not served yet, each with its ROADMAP Queue 1 item 3 entry:
-training (no --eval-ckpt), --infos / --prior-root (the stage-3 data
-pipeline) and --bf16.
+Without --data-dir both use the toy batches of --seed (numpy RandomState,
+the JAX CLI's arrays); an .npz sample holds imgs, sensor2ego, cam2imgs,
+post_rots, post_trans, bda, voxel_semantics and optionally mask_camera and
+prior_feats / prior_coords / prior_valid. A stereo model returns three
+outputs; the occupancy logits are the first. Runs on the CUDA card;
+``main(argv, device=...)`` takes another device. Not ported yet:
+--infos / --prior-root (the stage-3 data pipeline, ROADMAP Queue 1 item
+4(a)) and --bf16 (item 4(b)).
 """
 
 from __future__ import annotations
@@ -25,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pickle
+import time
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +108,72 @@ _MODEL_INPUTS = ("imgs", "sensor2ego", "cam2imgs", "post_rots", "post_trans", "b
 _PRIOR_INPUTS = ("prior_feats", "prior_coords", "prior_valid")
 
 
+def to_device(batch, device) -> dict:
+    """A numpy batch as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+
+
+def make_optimizer(model: torch.nn.Module, lr: float, weight_decay: float):
+    """AdamW over the model's parameters (not its BatchNorm statistics).
+    torch.optim.AdamW does optax.adamw's arithmetic (betas 0.9 and 0.999,
+    eps 1e-8 added to the root of the bias-corrected second moment, and
+    decoupled decay ``lr * weight_decay * p`` taken from the parameter
+    before the step): the two differ only in rounding."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place on the gradients: all of them
+    scaled by max_norm / ||g|| where the global norm ||g|| >= max_norm, else
+    left as they are (clip_grad_norm_ would add 1e-6 to the norm). On the
+    device: no host sync. Returns the norm."""
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def train_step(model, optimizer, ema, batch, grad_clip: float = 5.0, ema_decay: float = 0.9990,
+               plain: bool = False):
+    """One training step (train_occ.py:279-299 of the JAX package): the
+    train-mode forward (``occ`` is the first output), ``occ_loss``, the
+    backward (convolutions in IEEE f32, as the forward's), a zero gradient
+    for a parameter the graph did not reach (as JAX's would be),
+    global-norm clipping, AdamW, then the EMA. ``batch`` holds tensors on
+    the model's device; ``plain`` runs S1, S1b and S2's plain versions.
+    Returns (the loss as a device tensor, the EMA state)."""
+    from ..occupancy import occ_loss
+    from ..utils.ema import ema_update
+    from ..utils.precision import ieee_convolutions
+
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    priors = {k: batch[k] for k in _PRIOR_INPUTS if k in batch}
+    occ = model(*[batch[k] for k in _MODEL_INPUTS], **priors, plain=plain)[0]
+    loss = occ_loss(occ, batch["voxel_semantics"], batch.get("mask_camera"))
+    with ieee_convolutions():
+        loss.backward()
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_(params, grad_clip)
+    optimizer.step()
+    return loss.detach(), ema_update(ema, model, ema_decay)
+
+
+def checkpoint(model, ema, iters: int) -> dict:
+    """The JAX CLI's pickle (train_occ.py:311-316): the variables and the
+    EMA as flax numpy trees, the EMA's update count and the iterations."""
+    from ..bridge import occ_state_to_flax
+
+    return {"params": occ_state_to_flax(model), "ema": occ_state_to_flax(model, ema.params),
+            "ema_updates": int(ema.updates), "iters": iters}
+
+
 def main(argv=None, device=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -119,19 +204,17 @@ def main(argv=None, device=None) -> int:
                         help="which weights to evaluate; the reference evaluates the EMA")
     args = parser.parse_args(argv)
 
-    if args.eval_ckpt is None:
-        raise SystemExit("train_occ: training is not ported yet (ROADMAP Queue 1 item 3: "
-                         "occ_loss, EMA, AdamW with clipping, BN train-mode statistics); "
-                         "pass --eval-ckpt to evaluate a checkpoint")
     if args.infos is not None or args.prior_root is not None:
         raise SystemExit("train_occ: --infos / --prior-root need data/stage3_pipeline.py, "
-                         "which is not ported yet (ROADMAP Queue 1 item 3)")
+                         "which is not ported yet (ROADMAP Queue 1 item 4(a))")
     if args.bf16:
         raise SystemExit("train_occ: --bf16 (utils/deploy.py) is not ported yet "
-                         "(ROADMAP Queue 1 item 3)")
+                         "(ROADMAP Queue 1 item 4(b))")
 
     from ..bridge import occ_state_from_flax
+    from ..models.layers import init_weights
     from ..occupancy import BEVDetOcc
+    from ..utils.ema import ema_init
     from ..utils.occ_metrics import MetricMIoU
 
     dev = torch.device("cuda" if device is None else device)
@@ -141,18 +224,37 @@ def main(argv=None, device=None) -> int:
                      for i in range(4)])
     with_priors = "prior_feats" in batches[0]
     model = BEVDetOcc(cfg, device=dev, with_prior_fusion=with_priors)
+
+    if args.eval_ckpt is None:
+        init_weights(model, torch.Generator().manual_seed(args.seed))
+        optimizer = make_optimizer(model, args.lr, args.weight_decay)
+        ema = ema_init(model, init_updates=args.ema_init_updates)
+        on_device = [to_device(b, dev) for b in batches]
+        args.out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        loss = torch.tensor(float("nan"))
+        for i in range(args.iters):
+            loss, ema = train_step(model, optimizer, ema, on_device[i % len(on_device)],
+                                   args.grad_clip, args.ema_decay)
+            if i % 10 == 0 or i + 1 == args.iters:
+                print(f"iter {i:5d} | loss={float(loss):.4f} | "
+                      f"{(time.perf_counter() - t0):.1f}s", flush=True)
+        path = args.out / f"occ-step-{args.iters:09d}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(checkpoint(model, ema, args.iters), f)
+        print(f"saved {path} (final loss {float(loss):.4f})")
+        return 0
+
     with open(args.eval_ckpt, "rb") as f:
         ckpt = pickle.load(f)
     occ_state_from_flax(ckpt["ema"] if args.eval_params == "ema" else ckpt["params"], model)
-
     metric = MetricMIoU(num_classes=cfg.num_classes,
                         use_image_mask=any("mask_camera" in b for b in batches))
     for b in batches:
-        inputs = [torch.as_tensor(np.asarray(b[k]), device=dev) for k in _MODEL_INPUTS]
-        priors = ({k: torch.as_tensor(np.asarray(b[k]), device=dev) for k in _PRIOR_INPUTS}
-                  if with_priors else {})
+        t = to_device(b, dev)
         with torch.no_grad():
-            occ = model(*inputs, **priors)[0]
+            occ = model(*[t[k] for k in _MODEL_INPUTS],
+                        **{k: t[k] for k in _PRIOR_INPUTS if k in t})[0]
         metric.add_batch(occ.argmax(dim=-1).cpu().numpy(), np.asarray(b["voxel_semantics"]),
                          mask_camera=np.asarray(b["mask_camera"]) if "mask_camera" in b else None)
     for c, v in enumerate(metric.per_class_iou()):

@@ -154,6 +154,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "assert 'presight_tpu.models' not in sys.modules\n"
+        "assert {'presight_tpu_torch.utils.ema', 'presight_tpu_torch.scripts.train_occ',"
+        " 'presight_tpu_torch.occupancy.bev_pool'} <= set(names)\n"
         "print('OK', len(names))\n"
     )
     env = dict(os.environ)
@@ -162,7 +164,7 @@ def test_port_imports_without_jax():
                           cwd=str(REPO), env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.startswith("OK"), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 55  # the serving CLIs and their utils among them
+    assert int(proc.stdout.split()[1]) >= 56  # the CLIs, their utils and the EMA among them
 
 
 def test_port_source_imports_only_native_from_jax_package():
@@ -208,6 +210,7 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
     device must launch the kernel or raise (here: 'meta' tensors)."""
     from presight_tpu_torch.fields.prop_field import prop_grid_density
     from presight_tpu_torch.occupancy import bev_pool_v2, stereo_cost_volume
+    from presight_tpu_torch.occupancy.bev_pool import bev_pool_bwd
     from presight_tpu_torch.ops.hash_encoding import hash_encode
     from presight_tpu_torch.ops.mlp import apply_mlp, apply_mlp_blocks
     from presight_tpu_torch.ops.renderers import volume_render
@@ -234,6 +237,11 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
         bev_pool_v2(torch.zeros((1, 2, 3, 4, 5), device=meta),
                     torch.zeros((1, 2, 4, 5, 6), device=meta),
                     torch.zeros((1, 2, 3, 4, 5, 3), device=meta), [0.0] * 3, [1.0] * 3, (4, 4, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        bev_pool_bwd(torch.zeros((1, 2, 3, 4, 5), device=meta),
+                     torch.zeros((1, 2, 4, 5, 6), device=meta),
+                     torch.zeros((1, 2, 3, 4, 5, 3), device=meta),
+                     torch.zeros((1, 6, 2, 4, 4), device=meta), [0.0] * 3, [1.0] * 3, (4, 4, 2))
     with pytest.raises(ValueError, match="CUDA"):
         stereo_cost_volume(torch.zeros((2, 3, 4, 8), device=meta),
                            torch.zeros((2, 3, 4, 8), device=meta),

@@ -963,6 +963,93 @@ def test_bev_pool_kernel_matches_plain(kind, B, N, D, H, W, C):
     torch.testing.assert_close(got.cpu(), cpu, rtol=rtol, atol=atol)
 
 
+# S1b resolves a pixel's bins 32 at a time: D = 45 and the rig's D = 88
+# take two and three rounds, the last one ragged (13 and 24 bins).
+S1B_CASES = S1_CASES + [("random", 1, 2, D, 4, 5, C) for D in (45, 88) for C in (32, 40)]
+
+
+@pytest.mark.parametrize("kind,B,N,D,H,W,C", S1B_CASES)
+def test_bev_pool_bwd_kernel_matches_plain(kind, B, N, D, H, W, C):
+    """S1b against its plain version (bev_pool_v2_bwd_plain) on the card
+    and on the CPU, on S1's inputs (a quarter of the points on voxel faces,
+    points outside the grid, voxels of hundreds of points): d depth and d
+    feat within rtol 1e-5 + atol 1e-6 of the largest (d feat sums a pixel's
+    D products in bin order as the plain version does, d depth a dot
+    product over C in another order), d depth exactly 0 outside the grid,
+    two calls bitwise equal; C = 40, 64 and 96 take one to three channel
+    chunks past the first (ragged, whole, and the kernel's 4-chunk form);
+    D = 45 and 88 take later rounds of 32 bins, the last one ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.occupancy import bev_pool as PB
+
+    rng = np.random.RandomState(3)
+    gs = S1_ODD_GRID if kind == "odd_grid" else S1_GRID
+    depth, feat, coor = s1_points(rng, kind, B, N, D, H, W, C)
+    g = rng.randn(B, C, gs[2], gs[1], gs[0]).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (depth, feat, coor, g)]
+    got = PB.bev_pool_bwd(*args, S1_LB, S1_IV, gs)
+    again = PB.bev_pool_bwd(*args, S1_LB, S1_IV, gs)
+    want = PB.bev_pool_v2_bwd_plain(*args, S1_LB, S1_IV, gs)
+    cpu = PB.bev_pool_v2_bwd_plain(*(torch.from_numpy(a) for a in (depth, feat, coor, g)),
+                                   S1_LB, S1_IV, gs)
+    torch.cuda.synchronize()
+    outside = PB.voxel_ranks(args[2], S1_LB, S1_IV, gs) == B * gs[0] * gs[1] * gs[2]
+    for a, b, w, c in zip(got, again, want, cpu):
+        assert torch.equal(a, b)
+        _close_scaled(a, w, rtol=1e-5, atol_frac=1e-6)
+        _close_scaled(a.cpu(), c, rtol=1e-5, atol_frac=1e-6)
+    assert bool(outside.any()) == (kind != "one_voxel")
+    assert bool((got[0][outside] == 0).all())
+
+
+def test_bev_pool_bwd_refuses_more_than_128_channels():
+    """S1b holds at most 4 chunks of 32 channels: C = 129 raises before a
+    launch, and no launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.occupancy import bev_pool as PB
+
+    rng = np.random.RandomState(5)
+    gx, gy, gz = S1_GRID
+    args = [torch.from_numpy(a).cuda() for a in s1_points(rng, "random", 1, 2, 3, 4, 5, 129)]
+    g = torch.zeros((1, 129, gz, gy, gx), device="cuda")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="128"):
+        PB.bev_pool_bwd(*args, g, S1_LB, S1_IV, S1_GRID)
+    assert kernels.LAUNCHES["bev_pool_bwd"] == 0
+
+
+def test_bev_pool_autograd_on_the_card_runs_s1b():
+    """bev_pool_v2 on CUDA tensors that require grad: a grad_fn, one S1 and
+    one S1b launch, the incoming gradient a strided slice of torch.cat's
+    backward (as the temporal branch gives it), gradients equal to the
+    plain path's (plain=True) within rtol 1e-5 + atol 1e-6 of the largest,
+    and none for coor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from presight_tpu_torch.occupancy import bev_pool as PB
+
+    rng = np.random.RandomState(4)
+    depth, feat, coor = s1_points(rng, "heavy", 2, 3, 10, 8, 10, 32)
+    gx, gy, gz = S1_GRID
+    g = torch.from_numpy(rng.randn(2, 64, gz, gy, gx).astype(np.float32)).cuda()
+    grads = []
+    for plain in (False, True):
+        d, f, c = (torch.from_numpy(a).cuda().requires_grad_() for a in (depth, feat, coor))
+        kernels.reset_launches()
+        out = PB.bev_pool_v2(d, f, c, S1_LB, S1_IV, S1_GRID, plain=plain)
+        assert out.grad_fn is not None
+        (torch.cat([out, torch.zeros_like(out)], dim=1) * g).sum().backward()
+        torch.cuda.synchronize()
+        launches = (kernels.LAUNCHES["bev_pool_fwd"], kernels.LAUNCHES["bev_pool_bwd"])
+        assert launches == ((0, 0) if plain else (1, 1))
+        assert c.grad is None
+        grads.append((d.grad, f.grad))
+    for a, b in zip(*grads):
+        _close_scaled(a, b, rtol=1e-5, atol_frac=1e-6)
+
+
 def smooth_epipolar_grid(rng, BN, Hs, Ws, D):
     """A stereo grid (BN, D * Hs * Ws, 2) whose bins walk a line through the
     previous image as gen_stereo_grid's do, but through every case of S2's

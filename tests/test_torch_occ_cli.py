@@ -8,7 +8,8 @@ EMA and the raw weights, and on an .npz directory with camera masks: the
 printed per-class IoU and mIoU lines must be equal, and the predicted
 classes of every voxel too. The pickle loads in a hermetic interpreter
 with jax and flax blocked (it holds numpy arrays only). What the port's
-CLI does not serve yet raises SystemExit naming the ROADMAP item.
+CLI does not serve yet (--infos / --prior-root, --bf16) raises SystemExit
+naming the ROADMAP item. Training is tested in test_torch_occ_train_cli.py.
 """
 
 import argparse
@@ -120,7 +121,6 @@ def test_checkpoint_unpickles_without_jax(checkpoint):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--iters", "3"], "training"),
     (["--eval-ckpt", "x.pkl", "--infos", "infos.pkl"], "stage3_pipeline"),
     (["--eval-ckpt", "x.pkl", "--prior-root", "priors"], "stage3_pipeline"),
     (["--eval-ckpt", "x.pkl", "--bf16"], "deploy"),
