@@ -1,0 +1,13 @@
+"""The share of the traced window in which no operation ran on the card: one
+less the union of the device's events over the window."""
+
+LAYER = "device"
+SOURCE = "device_trace"
+MOVES = "extract_frames_per_s"
+UNIT = "%"
+
+
+def read(trace, work):
+    if trace.window_s <= 0 or not trace.events:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
