@@ -24,7 +24,7 @@ data      cameras, the dataparser (with its k-means), image loading, the
 engine    Trainer (from disk or in memory) and train step, checkpoints,
           ImageRenderer and image metrics, reference-checkpoint import
 prior     prior extraction to the city-prior pickle
-utils     PSNR / SSIM, the event writer, the span profiler
+utils     PSNR / SSIM, the event writer, spans and counters (profiler)
 scripts   the train CLI
 
 Each kernel wrapper launches its CUDA kernel on CUDA tensors and runs its

@@ -25,6 +25,7 @@ import torch
 
 from ..data.cameras import CameraParams, generate_rays
 from ..models.nerfacto_ms import NerfactoNuscMS, compute_losses
+from ..utils.profiler import span
 from .optimizers import GroupOptimizer
 
 
@@ -74,14 +75,16 @@ def train_step(model: NerfactoNuscMS, optimizers: Dict[str, GroupOptimizer],
     device = batch["ray_index"].device
     for i in range(k):
         chunk = {key: v[i * micro:(i + 1) * micro] for key, v in batch.items()}
-        uniforms = (draws[i] if draws is not None
-                    else draw_uniforms(model, micro, generator, device))
-        bundle = generate_rays(cameras, chunk["ray_index"])
-        outputs = model(bundle, train=True, prop_grid=prop_grid, anneal=scalars.anneal,
-                        uniforms=uniforms, stop_prop_grad=stop_prop_grad)
-        losses = compute_losses(outputs, chunk, config, scalars.sigma, scalars.los_mult)
-        total = sum(losses.values())
-        total.backward()
+        with span("nerf.forward"):
+            uniforms = (draws[i] if draws is not None
+                        else draw_uniforms(model, micro, generator, device))
+            bundle = generate_rays(cameras, chunk["ray_index"])
+            outputs = model(bundle, train=True, prop_grid=prop_grid, anneal=scalars.anneal,
+                            uniforms=uniforms, stop_prop_grad=stop_prop_grad)
+            losses = compute_losses(outputs, chunk, config, scalars.sigma, scalars.los_mult)
+            total = sum(losses.values())
+        with span("nerf.backward"):
+            total.backward()
         with torch.no_grad():
             for key, v in losses.items():
                 totals[key] = totals[key] + v if key in totals else v.detach()
@@ -89,13 +92,15 @@ def train_step(model: NerfactoNuscMS, optimizers: Dict[str, GroupOptimizer],
             if "rgb" in chunk:
                 mse_sum = mse_sum + torch.mean((outputs["rgb"] - chunk["rgb"]) ** 2)
     inv = 1.0 / k
-    with torch.no_grad():
-        for p in params:
-            if p.grad is not None:
-                p.grad.mul_(inv)
-    for opt in optimizers.values():
-        opt.step()
-    metrics = {key: float(v) * inv for key, v in totals.items()}
-    metrics["total_loss"] = float(total_sum) * inv
-    metrics["psnr"] = psnr(float(mse_sum) * inv)
+    with span("nerf.optimizer"):
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+        for opt in optimizers.values():
+            opt.step()
+    with span("nerf.metrics"):
+        metrics = {key: float(v) * inv for key, v in totals.items()}
+        metrics["total_loss"] = float(total_sum) * inv
+        metrics["psnr"] = psnr(float(mse_sum) * inv)
     return metrics

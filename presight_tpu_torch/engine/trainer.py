@@ -149,7 +149,6 @@ class Trainer:
                                        seed=config.seed)
         return self
 
-    @profiler.time_function(name="Trainer.setup")
     def setup(self, run_dir: Optional[Path] = None, write_config: bool = True) -> None:
         """``run_dir`` overrides config.run_dir() (eval_setup passes the
         directory the config was loaded from); ``write_config=False``
@@ -246,27 +245,29 @@ class Trainer:
                else min(self.step + num_steps, cfg.max_num_iterations))
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         while self.step < end:
-            step = self.step
-            t0 = time.perf_counter()
-            batch = self._make_batch(self.datamanager.next_batch())
-            updated = self.update_sched.updated(step)
-            refreshed = mcfg.use_prop_grid and (self.prop_grid is None
-                                                or prop_grid_refresh_due(mcfg, step))
-            if refreshed:
-                self.prop_grid = self.model.make_prop_grid()
-            metrics = train_step(self.model, self.optimizers, self.cameras, batch,
-                                 step_scalars(mcfg, step), stop_prop_grad=not updated,
-                                 microbatch_rays=cfg.microbatch_rays, prop_grid=self.prop_grid,
-                                 generator=self.generator)
-            self.update_sched.step_cb(step, updated)
-            sync()
-            metrics["step_seconds"] = time.perf_counter() - t0
-            metrics["grid_refreshed"] = float(refreshed)
-            self.step += 1
-            if callback is not None:
-                callback(step, metrics)
-            if self.run_dir is not None:
-                self._cadences(step, metrics, rays)
+            with profiler.span("trainer.step"):
+                step = self.step
+                t0 = time.perf_counter()
+                with profiler.span("trainer.batch"):
+                    batch = self._make_batch(self.datamanager.next_batch())
+                updated = self.update_sched.updated(step)
+                refreshed = mcfg.use_prop_grid and (self.prop_grid is None
+                                                    or prop_grid_refresh_due(mcfg, step))
+                if refreshed:
+                    self.prop_grid = self.model.make_prop_grid()
+                metrics = train_step(self.model, self.optimizers, self.cameras, batch,
+                                     step_scalars(mcfg, step), stop_prop_grad=not updated,
+                                     microbatch_rays=cfg.microbatch_rays,
+                                     prop_grid=self.prop_grid, generator=self.generator)
+                self.update_sched.step_cb(step, updated)
+                sync()
+                metrics["step_seconds"] = time.perf_counter() - t0
+                metrics["grid_refreshed"] = float(refreshed)
+                self.step += 1
+                if callback is not None:
+                    callback(step, metrics)
+                if self.run_dir is not None:
+                    self._cadences(step, metrics, rays)
         if num_steps is None and self.run_dir is not None:
             # The final checkpoint, labelled with the step the state holds;
             # none when no step ran (a rerun below the trained step), so the

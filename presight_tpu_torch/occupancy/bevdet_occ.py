@@ -25,6 +25,7 @@ from torch import nn
 from ..mapping.conv_gru import warp_bev
 from ..models.prior_fusion import PriorFusion3DVoxel
 from ..utils.precision import ieee_convolutions
+from ..utils.profiler import span
 from .backbones import CustomFPN, CustomResNet3D, LSSFPN3D, ResNet, resnet_channels
 from ..models.layers import BatchNorm, Conv, Dense
 from .view_transformer import LSSViewTransformer
@@ -216,7 +217,7 @@ class BEVDetOcc(nn.Module):
                 prior_feats=None, prior_coords=None, prior_valid=None,
                 prev_bev=None, prev2curr=None, prev_stereo_feat=None, k2s_sensor=None,
                 plain: bool = False):
-        with ieee_convolutions():
+        with span("occ.forward"), ieee_convolutions():
             return self._forward(imgs, sensor2ego, cam2imgs, post_rots, post_trans, bda,
                                  prior_feats, prior_coords, prior_valid, prev_bev, prev2curr,
                                  prev_stereo_feat, k2s_sensor, plain)
@@ -226,50 +227,54 @@ class BEVDetOcc(nn.Module):
                  plain):
         cfg = self.config
         B, N, _, H, W = imgs.shape
-        x = imgs.reshape(B * N, 3, H, W)
-        curr_stereo = None
-        if cfg.backbone == "resnet":
-            feats = self.ResNet_0(x)
-            curr_stereo = feats[0] if cfg.stereo else None
-            x = self.CustomFPN_0(feats[1:])
-        elif cfg.stereo:
-            x, curr_stereo = self.ImageEncoder_0(x, return_stereo=True)
-        else:
-            x = self.ImageEncoder_0(x)
-        x = x.reshape(B, N, *x.shape[1:])
-        stereo_metas = None
-        if cfg.stereo:
-            # (BN, Cs, Hs, Ws) -> (B, N, Hs, Ws, Cs): S2 gathers whole channel rows
-            curr_stereo = curr_stereo.permute(0, 2, 3, 1).reshape(
-                B, N, *curr_stereo.shape[2:], curr_stereo.shape[1]).contiguous()
-            stereo_metas = dict(curr_feat=curr_stereo, prev_feat=prev_stereo_feat,
-                                k2s_sensor=k2s_sensor)
-        bev, depth = self.LSSViewTransformer_0(x, sensor2ego, cam2imgs, post_rots, post_trans,
-                                               bda, stereo_metas, plain=plain)
-        if cfg.temporal:
-            # BEVDet4D: warp each z slice of the previous volume into the
-            # current ego frame, concatenate, fuse back with a 1x1x1 conv.
-            if prev_bev is None:
-                prev_bev = torch.zeros_like(bev)
-            if prev2curr is None:
-                prev2curr = torch.eye(3, device=bev.device).expand(B, 3, 3)
-            gx, gy = cfg.grid_config["x"], cfg.grid_config["y"]
-            roi = (gx[1] - gx[0], gy[1] - gy[0])
-            _, c, z, yy, xx = prev_bev.shape
-            aligned = torch.stack([warp_bev(prev_bev[b].reshape(c * z, yy, xx), prev2curr[b], roi)
-                                   for b in range(B)]).reshape(prev_bev.shape)
-            bev = self.temporal_fuse(torch.cat([bev, aligned], dim=1))
-        if prior_feats is not None:
-            v = bev.permute(0, 1, 3, 4, 2)  # (B, C, Y, X, Z)
-            if cfg.use_prior_only:
-                v = torch.zeros_like(v)
-            v = self.PriorFusion3DVoxel_0(v, prior_feats, prior_coords, prior_valid)
-            bev = v.permute(0, 1, 4, 2, 3)
-        if cfg.bev_neck == "lssfpn3d":
-            bev = self.LSSFPN3D_0(self.CustomResNet3D_0(bev.contiguous()))
-        else:
-            bev = self.BEVEncoder3D_0(bev.contiguous())
-        occ = self.OccHead_0(bev)
+        with span("occ.image_encoder"):
+            x = imgs.reshape(B * N, 3, H, W)
+            curr_stereo = None
+            if cfg.backbone == "resnet":
+                feats = self.ResNet_0(x)
+                curr_stereo = feats[0] if cfg.stereo else None
+                x = self.CustomFPN_0(feats[1:])
+            elif cfg.stereo:
+                x, curr_stereo = self.ImageEncoder_0(x, return_stereo=True)
+            else:
+                x = self.ImageEncoder_0(x)
+            x = x.reshape(B, N, *x.shape[1:])
+            stereo_metas = None
+            if cfg.stereo:
+                # (BN, Cs, Hs, Ws) -> (B, N, Hs, Ws, Cs): S2 gathers whole channel rows
+                curr_stereo = curr_stereo.permute(0, 2, 3, 1).reshape(
+                    B, N, *curr_stereo.shape[2:], curr_stereo.shape[1]).contiguous()
+                stereo_metas = dict(curr_feat=curr_stereo, prev_feat=prev_stereo_feat,
+                                    k2s_sensor=k2s_sensor)
+        with span("occ.view_transformer"):
+            bev, depth = self.LSSViewTransformer_0(x, sensor2ego, cam2imgs, post_rots,
+                                                   post_trans, bda, stereo_metas, plain=plain)
+        with span("occ.bev_encoder"):
+            if cfg.temporal:
+                # BEVDet4D: warp each z slice of the previous volume into the
+                # current ego frame, concatenate, fuse back with a 1x1x1 conv.
+                if prev_bev is None:
+                    prev_bev = torch.zeros_like(bev)
+                if prev2curr is None:
+                    prev2curr = torch.eye(3, device=bev.device).expand(B, 3, 3)
+                gx, gy = cfg.grid_config["x"], cfg.grid_config["y"]
+                roi = (gx[1] - gx[0], gy[1] - gy[0])
+                _, c, z, yy, xx = prev_bev.shape
+                aligned = torch.stack([
+                    warp_bev(prev_bev[b].reshape(c * z, yy, xx), prev2curr[b], roi)
+                    for b in range(B)]).reshape(prev_bev.shape)
+                bev = self.temporal_fuse(torch.cat([bev, aligned], dim=1))
+            if prior_feats is not None:
+                v = bev.permute(0, 1, 3, 4, 2)  # (B, C, Y, X, Z)
+                if cfg.use_prior_only:
+                    v = torch.zeros_like(v)
+                v = self.PriorFusion3DVoxel_0(v, prior_feats, prior_coords, prior_valid)
+                bev = v.permute(0, 1, 4, 2, 3)
+            if cfg.bev_neck == "lssfpn3d":
+                bev = self.LSSFPN3D_0(self.CustomResNet3D_0(bev.contiguous()))
+            else:
+                bev = self.BEVEncoder3D_0(bev.contiguous())
+            occ = self.OccHead_0(bev)
         if cfg.stereo:
             return occ, depth, curr_stereo
         return occ, depth

@@ -27,6 +27,7 @@ import torch
 from ..data.cameras import CameraParams, generate_rays
 from ..models.nerfacto_ms import NerfactoNuscMS
 from ..utils.colormaps import apply_feature_colormap
+from ..utils.profiler import count, span
 from .voxelize import hit_quantile_filter, make_streaming_accumulator
 
 CAMERAS_PER_FRAME = 6
@@ -85,31 +86,39 @@ def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_id
 
     points_list, dens_list, feat_list = [], [], []
     for s in range(0, n, chunk):
-        idx = ray_index[s:s + chunk]
-        idx_p = np.pad(idx, ((0, _pad_to(len(idx), 4096) - len(idx)), (0, 0)))
-        bundle = generate_rays(cameras, torch.from_numpy(idx_p).to(device))
-        outputs = model.forward_depth(bundle, prop_grid=prop_grid)
-        depth = outputs[depth_type][: len(idx)].cpu().numpy() / pose_scale_factor
-        origins = bundle.origins[: len(idx)].cpu().numpy() / pose_scale_factor
-        dirs = bundle.directions[: len(idx)].cpu().numpy()
-        world = origins + dirs * depth[:, None]
-        sel = ((depth < max_depth) & (depth > min_depth)
-               & (world[:, 2] > z_bounds[0]) & (world[:, 2] < z_bounds[1]))
-        world = world[sel]
-        if len(world) == 0:
-            continue
-        wpad = _pad_to(len(world), 4096) - len(world)
-        world_p = torch.from_numpy(
-            np.pad(world, ((0, wpad), (0, 0))).astype(np.float32)).to(device)
-        dens_t, feats_t = model.point_queries(world_p * pose_scale_factor, prop_grid)
-        points_list.append(world.astype(np.float32))
-        dens_list.append(dens_t[: len(world)].cpu().numpy().astype(np.float32))
-        feat_list.append(feats_t[: len(world)].cpu().numpy().astype(np.float16))
+        with span("extract.render"):
+            idx = ray_index[s:s + chunk]
+            idx_p = np.pad(idx, ((0, _pad_to(len(idx), 4096) - len(idx)), (0, 0)))
+            count("extract.rays", len(idx))
+            count("extract.rays_padded", len(idx_p))
+            bundle = generate_rays(cameras, torch.from_numpy(idx_p).to(device))
+            outputs = model.forward_depth(bundle, prop_grid=prop_grid)
+            depth = outputs[depth_type][: len(idx)].cpu().numpy() / pose_scale_factor
+            origins = bundle.origins[: len(idx)].cpu().numpy() / pose_scale_factor
+            dirs = bundle.directions[: len(idx)].cpu().numpy()
+        with span("extract.select"):
+            world = origins + dirs * depth[:, None]
+            sel = ((depth < max_depth) & (depth > min_depth)
+                   & (world[:, 2] > z_bounds[0]) & (world[:, 2] < z_bounds[1]))
+            world = world[sel]
+            if len(world) == 0:
+                continue
+            wpad = _pad_to(len(world), 4096) - len(world)
+            world_p = np.pad(world, ((0, wpad), (0, 0))).astype(np.float32)
+        with span("extract.query"):
+            count("extract.points", len(world))
+            count("extract.points_padded", len(world_p))
+            dens_t, feats_t = model.point_queries(
+                torch.from_numpy(world_p).to(device) * pose_scale_factor, prop_grid)
+            points_list.append(world.astype(np.float32))
+            dens_list.append(dens_t[: len(world)].cpu().numpy().astype(np.float32))
+            feat_list.append(feats_t[: len(world)].cpu().numpy().astype(np.float16))
 
     if not points_list:
         return None
-    return (np.concatenate(points_list), np.concatenate(dens_list),
-            np.concatenate(feat_list))
+    with span("extract.select"):
+        return (np.concatenate(points_list), np.concatenate(dens_list),
+                np.concatenate(feat_list))
 
 
 @torch.no_grad()
@@ -128,93 +137,98 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
     temporary directory, then folded into the O(voxels) accumulator once
     the grid origin (min of all points - 1) is known. ``accumulator``:
     'native' (C++) or 'numpy' (its plain version; same bytes)."""
-    output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
-    depth_key = {"depth": "depth", "expected_depth": "expected_depth"}[depth_type]
-    config = model.config
+    with span("extract.frame"):
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        depth_key = {"depth": "depth", "expected_depth": "expected_depth"}[depth_type]
+        config = model.config
 
-    if camera_scaling_factor != 1.0:
-        cameras = CameraParams(
-            c2w=cameras.c2w,
-            fx=cameras.fx * camera_scaling_factor,
-            fy=cameras.fy * camera_scaling_factor,
-            cx=cameras.cx * camera_scaling_factor,
-            cy=cameras.cy * camera_scaling_factor,
-            video_ids=cameras.video_ids,
-        )
-    mask_ids = np.array([CITYSCAPE_CLASSES.index(c) for c in mask_seg_classes], np.uint8)
+        if camera_scaling_factor != 1.0:
+            cameras = CameraParams(
+                c2w=cameras.c2w,
+                fx=cameras.fx * camera_scaling_factor,
+                fy=cameras.fy * camera_scaling_factor,
+                cx=cameras.cx * camera_scaling_factor,
+                cy=cameras.cy * camera_scaling_factor,
+                video_ids=cameras.video_ids,
+            )
+        mask_ids = np.array([CITYSCAPE_CLASSES.index(c) for c in mask_seg_classes], np.uint8)
 
-    num_frames = len(items) // CAMERAS_PER_FRAME + 1
-    camera_indices: List[int] = []
-    for f in range(0, num_frames, frame_interval):
-        camera_indices.extend(
-            range(CAMERAS_PER_FRAME * f, min(CAMERAS_PER_FRAME * (f + 1), len(items))))
+        num_frames = len(items) // CAMERAS_PER_FRAME + 1
+        camera_indices: List[int] = []
+        for f in range(0, num_frames, frame_interval):
+            camera_indices.extend(
+                range(CAMERAS_PER_FRAME * f, min(CAMERAS_PER_FRAME * (f + 1), len(items))))
 
-    feat_dim = config.semantic_dim
-    prop_grid = model.make_prop_grid()
-    spill_frames: List[Path] = []
-    pts_min: Optional[np.ndarray] = None
-    n_before = n_after = 0
-    with tempfile.TemporaryDirectory(prefix="presight_extract_") as spill_name:
-        spill_dir = Path(spill_name)
-        for ci in camera_indices:
-            item = items[ci]
-            H = int(item.H * camera_scaling_factor)
-            W = int(item.W * camera_scaling_factor)
-            seg_valid = None
-            if use_segmentation_mask and item.seg_path is not None:
-                seg = item.load_segmentation()
-                if camera_scaling_factor != 1.0:
-                    seg = _nearest_resize(seg, H, W)
-                seg_valid = ~np.isin(seg, mask_ids)
-            result = extract_frame_points(
-                model, cameras, ci, H, W, seg_valid, pose_scale_factor,
-                max_depth=max_depth, min_depth=min_depth, depth_type=depth_key,
-                prop_grid=prop_grid, z_bounds=z_bounds)
-            if result is None:
-                continue
-            pts, dens, feats = result
-            n_before += len(dens)
-            sel = dens > density_threshold
-            n_after += int(sel.sum())
-            pts_s, feats_s = pts[sel], feats[sel]
-            if len(pts_s) == 0:
-                continue
-            colors_s = apply_feature_colormap(feats_s.astype(np.float32), dino_to_rgb)
-            fpath = spill_dir / f"frame_{len(spill_frames):06d}.npz"
-            np.savez(fpath, points=pts_s.astype(np.float32), colors=colors_s,
-                     features=feats_s)
-            spill_frames.append(fpath)
-            m = pts_s.astype(np.float32).min(axis=0)
-            pts_min = m if pts_min is None else np.minimum(pts_min, m)
+        feat_dim = config.semantic_dim
+        prop_grid = model.make_prop_grid()
+        spill_frames: List[Path] = []
+        pts_min: Optional[np.ndarray] = None
+        n_before = n_after = 0
+        with tempfile.TemporaryDirectory(prefix="presight_extract_") as spill_name:
+            spill_dir = Path(spill_name)
+            for ci in camera_indices:
+                item = items[ci]
+                H = int(item.H * camera_scaling_factor)
+                W = int(item.W * camera_scaling_factor)
+                seg_valid = None
+                if use_segmentation_mask and item.seg_path is not None:
+                    seg = item.load_segmentation()
+                    if camera_scaling_factor != 1.0:
+                        seg = _nearest_resize(seg, H, W)
+                    seg_valid = ~np.isin(seg, mask_ids)
+                result = extract_frame_points(
+                    model, cameras, ci, H, W, seg_valid, pose_scale_factor,
+                    max_depth=max_depth, min_depth=min_depth, depth_type=depth_key,
+                    prop_grid=prop_grid, z_bounds=z_bounds)
+                if result is None:
+                    continue
+                pts, dens, feats = result
+                with span("extract.colors"):
+                    n_before += len(dens)
+                    sel = dens > density_threshold
+                    n_after += int(sel.sum())
+                    pts_s, feats_s = pts[sel], feats[sel]
+                    if len(pts_s) == 0:
+                        continue
+                    colors_s = apply_feature_colormap(feats_s.astype(np.float32), dino_to_rgb)
+                with span("extract.spill"):
+                    fpath = spill_dir / f"frame_{len(spill_frames):06d}.npz"
+                    np.savez(fpath, points=pts_s.astype(np.float32), colors=colors_s,
+                             features=feats_s)
+                    spill_frames.append(fpath)
+                    m = pts_s.astype(np.float32).min(axis=0)
+                    pts_min = m if pts_min is None else np.minimum(pts_min, m)
 
-        print(f"num hit points before density thr: {n_before}")
-        print(f"num hit points after density thr: {n_after}")
-        min_bound = (pts_min - np.float32(1.0) if pts_min is not None
-                     else np.zeros(3, np.float32))
-        accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim,
-                                           accumulator=accumulator)
-        for fpath in spill_frames:
-            with np.load(fpath) as z:
-                accum.add(z["points"].astype(np.float64), z["colors"], z["features"])
-        voxels = accum.finalize()
-    print(f"num voxels after downsample to {voxel_size}: {len(voxels['points'])}")
-    voxels = hit_quantile_filter(voxels, hit_thr_ratio)
-    print(f"num voxels after hit thr: {len(voxels['points'])}")
+            print(f"num hit points before density thr: {n_before}")
+            print(f"num hit points after density thr: {n_after}")
+            with span("extract.fold"):
+                min_bound = (pts_min - np.float32(1.0) if pts_min is not None
+                             else np.zeros(3, np.float32))
+                accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim,
+                                                   accumulator=accumulator)
+                for fpath in spill_frames:
+                    with np.load(fpath) as z:
+                        accum.add(z["points"].astype(np.float64), z["colors"], z["features"])
+                voxels = accum.finalize()
+        print(f"num voxels after downsample to {voxel_size}: {len(voxels['points'])}")
+        with span("extract.write"):
+            voxels = hit_quantile_filter(voxels, hit_thr_ratio)
+            print(f"num voxels after hit thr: {len(voxels['points'])}")
 
-    result = {
-        "points": voxels["points"].astype(np.float32),
-        "features": voxels["features"].astype(np.float16),
-        "colors": voxels["colors"].astype(np.float32),
-        "hits": voxels["hits"],
-        "origin": np.asarray(origin, np.float32),
-    }
-    out_path = output_dir / "extracted_priors.pkl"
-    with open(out_path, "wb") as f:
-        pickle.dump(result, f)
-    print(f"result saved to {out_path}")
-    write_ply(result["points"], result["colors"], output_dir / "priors_for_vis.ply")
-    return result
+            result = {
+                "points": voxels["points"].astype(np.float32),
+                "features": voxels["features"].astype(np.float16),
+                "colors": voxels["colors"].astype(np.float32),
+                "hits": voxels["hits"],
+                "origin": np.asarray(origin, np.float32),
+            }
+            out_path = output_dir / "extracted_priors.pkl"
+            with open(out_path, "wb") as f:
+                pickle.dump(result, f)
+            print(f"result saved to {out_path}")
+            write_ply(result["points"], result["colors"], output_dir / "priors_for_vis.ply")
+        return result
 
 
 def write_ply(points: np.ndarray, colors: np.ndarray, out_path: Path) -> None:

@@ -148,21 +148,24 @@ def train_step(model, optimizer, ema, batch, grad_clip: float = 5.0, ema_decay: 
     from ..occupancy import occ_loss
     from ..utils.ema import ema_update
     from ..utils.precision import ieee_convolutions
+    from ..utils.profiler import span
 
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    priors = {k: batch[k] for k in _PRIOR_INPUTS if k in batch}
-    occ = model(*[batch[k] for k in _MODEL_INPUTS], **priors, plain=plain)[0]
-    loss = occ_loss(occ, batch["voxel_semantics"], batch.get("mask_camera"))
-    with ieee_convolutions():
-        loss.backward()
-    params = list(model.parameters())
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    clip_by_global_norm_(params, grad_clip)
-    optimizer.step()
-    return loss.detach(), ema_update(ema, model, ema_decay)
+    with span("occ.train_step"):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        priors = {k: batch[k] for k in _PRIOR_INPUTS if k in batch}
+        occ = model(*[batch[k] for k in _MODEL_INPUTS], **priors, plain=plain)[0]
+        loss = occ_loss(occ, batch["voxel_semantics"], batch.get("mask_camera"))
+        with ieee_convolutions():
+            loss.backward()
+        with span("occ.optimizer"):
+            params = list(model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            clip_by_global_norm_(params, grad_clip)
+            optimizer.step()
+            return loss.detach(), ema_update(ema, model, ema_decay)
 
 
 def checkpoint(model, ema, iters: int) -> dict:

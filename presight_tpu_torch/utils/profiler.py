@@ -1,56 +1,37 @@
-"""Named-span wall-clock profiler (presight_tpu/utils/profiler.py):
-``time_function`` and ``time_span`` add each call's host wall time to a
-per-name total that ``summary`` prints. Callers that time device work
-synchronise inside the span."""
+"""Spans and counters at the port's layer boundaries.
+
+``span(name)`` marks a phase of the host's work. With no torch.profiler
+session active it costs one global read and returns a shared null context.
+Inside a session it is ``torch.profiler.record_function(name)``: a CPU event
+of that session, on the clock of the device's events, whose parent is the
+span that encloses it on the same thread. In a closed loop one unit of work
+runs at a time on the main thread, so the unit's span is what the spans of
+its phases share.
+
+``count(name, n)`` adds ``n`` to ``COUNTS[name]``: integer counters that
+always run and add up over the life of the process, as
+``kernels.LAUNCHES`` does. Callers count once per chunk or call, never per
+element; readers take ratios of counters of one layer.
+"""
 
 from __future__ import annotations
 
 import contextlib
-import functools
-import time
-from collections import defaultdict
-from typing import Dict, Optional
+from collections import Counter
 
-_TOTALS: Dict[str, float] = defaultdict(float)
-_COUNTS: Dict[str, int] = defaultdict(int)
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
+COUNTS: Counter = Counter()
 
-@contextlib.contextmanager
-def time_span(name: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _TOTALS[name] += time.perf_counter() - t0
-        _COUNTS[name] += 1
+_OFF = contextlib.nullcontext()
 
 
-def time_function(fn=None, *, name: Optional[str] = None):
-    """Decorator recording wall-clock per call under ``name`` (or qualname)."""
-
-    def wrap(f):
-        span = name or f.__qualname__
-
-        @functools.wraps(f)
-        def inner(*args, **kwargs):
-            with time_span(span):
-                return f(*args, **kwargs)
-
-        return inner
-
-    if fn is not None:
-        return wrap(fn)
-    return wrap
+def span(name: str):
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return record_function(name)
 
 
-def summary() -> str:
-    lines = ["profiler summary (total s | calls | mean ms):"]
-    for name in sorted(_TOTALS, key=lambda n: -_TOTALS[n]):
-        tot, cnt = _TOTALS[name], _COUNTS[name]
-        lines.append(f"  {name:<45s} {tot:9.3f} | {cnt:6d} | {tot / cnt * 1e3:8.2f}")
-    return "\n".join(lines)
-
-
-def reset() -> None:
-    _TOTALS.clear()
-    _COUNTS.clear()
+def count(name: str, n: int) -> None:
+    COUNTS[name] += n
