@@ -6,7 +6,9 @@ render (forward_depth) -> world hit points filtered by depth and height ->
 mean density over the proposal rounds and the main field plus clipped
 semantic features at the hits (point_queries) -> density threshold -> PCA
 colours -> voxel downsample -> hit-quantile filter -> pickle {points f32,
-features f16, colors f32, hits, origin f32} and an ASCII PLY preview.
+features f16, colors f32, hits, origin f32} and an ASCII PLY preview. A
+camera's hits stay on the model's device up to the colours; only the kept
+points, their f16 features and colours cross to the host.
 
 Chunks are padded to the same power-of-two multiples of 4096 as the JAX
 version, so both see the same batches (the expected depth clips to its
@@ -26,7 +28,7 @@ import torch
 
 from ..data.cameras import CameraParams, generate_rays
 from ..models.nerfacto_ms import NerfactoNuscMS
-from ..utils.colormaps import apply_feature_colormap
+from ..utils.colormaps import colormap_on, feature_colormap
 from ..utils.profiler import count, span
 from .voxelize import hit_quantile_filter, make_streaming_accumulator
 
@@ -62,16 +64,41 @@ def _nearest_resize(arr: np.ndarray, h: int, w: int) -> np.ndarray:
     return arr[rows][:, cols]
 
 
+def _settle(device: torch.device) -> None:
+    """Wait for the card's queued work, so that the span it ends holds it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Tensors -> numpy arrays; from the card through pinned memory, all
+    copies queued before one wait."""
+    if tensors[0].device.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(hosts, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in hosts]
+
+
 @torch.no_grad()
 def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_idx: int,
                          H: int, W: int, seg_valid: Optional[np.ndarray],
-                         pose_scale_factor: float, chunk: int = 1 << 17,
+                         pose_scale_factor: float, colormap: Dict[str, torch.Tensor],
+                         density_threshold: float = 1.0, chunk: int = 1 << 17,
                          max_depth: float = 50.0, min_depth: float = 0.5,
                          depth_type: str = "expected_depth",
                          prop_grid: Optional[torch.Tensor] = None,
                          z_bounds=(-3.0, 6.0)):
-    """One camera -> (world points f32, densities f32, features f16), or
-    None when no pixel hits inside the depth and height bounds."""
+    """One camera -> (kept world points f32, features f16, colours f32,
+    hits), or None when no pixel hits inside the depth and height bounds.
+    Hits are the points inside those bounds; kept are those of density above
+    ``density_threshold``. The hits stay on the model's device through the
+    threshold and the colours (``feature_colormap`` of ``colormap``, made by
+    ``colormap_on``); only the kept rows cross to the host. Each step keeps
+    numpy's f32 bits: points are divided by the scale as a true division,
+    features rounded once to f16 (nearest even)."""
     device = cameras.c2w.device
     if seg_valid is not None:
         rows, cols = np.nonzero(seg_valid)
@@ -83,8 +110,12 @@ def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_id
     ray_index = np.stack(
         [np.full(n, camera_idx, np.int32), rows.astype(np.int32), cols.astype(np.int32)],
         axis=-1)
+    # A device scalar: CUDA divides by a host scalar as a product with its
+    # reciprocal, which can differ from numpy's quotient in the last bit.
+    psf = torch.tensor(pose_scale_factor, dtype=torch.float32, device=device)
 
-    points_list, dens_list, feat_list = [], [], []
+    hits = 0
+    points_list, feat_list, color_list = [], [], []
     for s in range(0, n, chunk):
         with span("extract.render"):
             idx = ray_index[s:s + chunk]
@@ -93,32 +124,37 @@ def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_id
             count("extract.rays_padded", len(idx_p))
             bundle = generate_rays(cameras, torch.from_numpy(idx_p).to(device))
             outputs = model.forward_depth(bundle, prop_grid=prop_grid)
-            depth = outputs[depth_type][: len(idx)].cpu().numpy() / pose_scale_factor
-            origins = bundle.origins[: len(idx)].cpu().numpy() / pose_scale_factor
-            dirs = bundle.directions[: len(idx)].cpu().numpy()
+            _settle(device)
         with span("extract.select"):
-            world = origins + dirs * depth[:, None]
+            depth = outputs[depth_type][: len(idx)] / psf
+            origins = bundle.origins[: len(idx)] / psf
+            world = origins + bundle.directions[: len(idx)] * depth[:, None]
             sel = ((depth < max_depth) & (depth > min_depth)
                    & (world[:, 2] > z_bounds[0]) & (world[:, 2] < z_bounds[1]))
             world = world[sel]
-            if len(world) == 0:
+            m = len(world)
+            if m == 0:
                 continue
-            wpad = _pad_to(len(world), 4096) - len(world)
-            world_p = np.pad(world, ((0, wpad), (0, 0))).astype(np.float32)
+            world_p = torch.nn.functional.pad(world, (0, 0, 0, _pad_to(m, 4096) - m))
         with span("extract.query"):
-            count("extract.points", len(world))
+            count("extract.points", m)
             count("extract.points_padded", len(world_p))
-            dens_t, feats_t = model.point_queries(
-                torch.from_numpy(world_p).to(device) * pose_scale_factor, prop_grid)
-            points_list.append(world.astype(np.float32))
-            dens_list.append(dens_t[: len(world)].cpu().numpy().astype(np.float32))
-            feat_list.append(feats_t[: len(world)].cpu().numpy().astype(np.float16))
+            dens, feats = model.point_queries(world_p * pose_scale_factor, prop_grid)
+            _settle(device)
+        with span("extract.colors"):
+            hits += m
+            keep = torch.nonzero(dens[:m] > density_threshold).squeeze(1)
+            feats16 = feats.index_select(0, keep).to(torch.float16)
+            points_list.append(world.index_select(0, keep))
+            feat_list.append(feats16)
+            color_list.append(feature_colormap(feats16, colormap))
 
     if not points_list:
         return None
-    with span("extract.select"):
-        return (np.concatenate(points_list), np.concatenate(dens_list),
-                np.concatenate(feat_list))
+    with span("extract.colors"):
+        kept = [torch.cat(rows) for rows in (points_list, feat_list, color_list)]
+        count("extract.points_kept", len(kept[0]))
+        return (*_to_host(kept), hits)
 
 
 @torch.no_grad()
@@ -162,6 +198,7 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
 
         feat_dim = config.semantic_dim
         prop_grid = model.make_prop_grid()
+        colormap = colormap_on(dino_to_rgb, cameras.c2w.device)
         spill_frames: List[Path] = []
         pts_min: Optional[np.ndarray] = None
         n_before = n_after = 0
@@ -178,20 +215,17 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
                         seg = _nearest_resize(seg, H, W)
                     seg_valid = ~np.isin(seg, mask_ids)
                 result = extract_frame_points(
-                    model, cameras, ci, H, W, seg_valid, pose_scale_factor,
-                    max_depth=max_depth, min_depth=min_depth, depth_type=depth_key,
-                    prop_grid=prop_grid, z_bounds=z_bounds)
+                    model, cameras, ci, H, W, seg_valid, pose_scale_factor, colormap,
+                    density_threshold=density_threshold, max_depth=max_depth,
+                    min_depth=min_depth, depth_type=depth_key, prop_grid=prop_grid,
+                    z_bounds=z_bounds)
                 if result is None:
                     continue
-                pts, dens, feats = result
-                with span("extract.colors"):
-                    n_before += len(dens)
-                    sel = dens > density_threshold
-                    n_after += int(sel.sum())
-                    pts_s, feats_s = pts[sel], feats[sel]
-                    if len(pts_s) == 0:
-                        continue
-                    colors_s = apply_feature_colormap(feats_s.astype(np.float32), dino_to_rgb)
+                pts_s, feats_s, colors_s, hits = result
+                n_before += hits
+                n_after += len(pts_s)
+                if len(pts_s) == 0:
+                    continue
                 with span("extract.spill"):
                     fpath = spill_dir / f"frame_{len(spill_frames):06d}.npz"
                     np.savez(fpath, points=pts_s.astype(np.float32), colors=colors_s,

@@ -1118,3 +1118,27 @@ def test_stereo_cost_volume_kernel_matches_plain(kind, BN, Hs, Ws, C, D):
     assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < mask.numel()
     torch.testing.assert_close(cost, want_cost, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(prob, want, rtol=0, atol=1e-5)
+
+
+def test_extraction_on_the_card_keeps_numpy_bits_under_tf32(tmp_path):
+    """test_torch_extraction.py's comparison on the card, with TF32 matrix
+    products turned on for the process: kept points and f16 features bit for
+    bit, colours within 1e-6 of numpy's IEEE f32, and the setting restored.
+    The setting is live: the same (N, 64) x (64, 3) product, unguarded,
+    misses the f64 one by more than the colours are held to."""
+    _need_cuda()
+    from test_torch_extraction import check_device_path_matches_numpy
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert check_device_path_matches_numpy(tmp_path, device="cuda") > 0
+        assert torch.backends.cuda.matmul.allow_tf32
+        gen = torch.Generator().manual_seed(0)
+        feats = torch.rand(4096, 64, generator=gen).cuda()
+        red = torch.randn(64, 3, generator=gen).cuda()
+        tf32 = (feats @ red).double()
+        want = feats.double() @ red.double()
+        assert float((tf32 - want).abs().max()) > 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
