@@ -162,6 +162,24 @@ outputs/chip_smoke/):
      index_select of the gathered rows; one profiled step (step_ms, step_launches); the CLI
      (train_occ --config <reference> --iters 2, then --eval-ckpt on its
      pickle).
+ 20. stage-3 online mapping serving: StreamMapNet at the published widths
+     of smn_wcamprior_480_100x50_24e_randomdrop (6 x 480 x 800, ResNet-50
+     with DCNv2 on stages 3-4, FPN, one BEVFormer layer, ConvGRU,
+     PriorFusion2D, 6 decoder layers, 85.09 M parameters) with weights from
+     a seed (offset biases N(0, 1), so taps fall between pixel centres), on
+     phase 18's rig resized to 480x800 and 20,000 random prior voxels.
+     Frame 1 from scratch, then frame 2 from its BEV and hand-off with
+     every S3 launch recorded; frame 2 again, counted: msda_fwd 8 and
+     deform_im2col_fwd 2 launches, nothing else; shapes and finite values;
+     both frames against the same frames with S3's plain versions on the
+     card (plain=True; MAP_REL_GAP, and equal top-k choices); each of the
+     10 recorded calls (TSA, SCA, six decoder layers; the two DCNs)
+     against its plain version at the cuda tests' tolerances, two calls
+     bitwise equal, timed (ms, device_ms, plain_ms) beside its bound
+     (s3_work), and summed for a frame; per-frame ms (median of 5), peak
+     memory and a profiled frame (frame_ms, frame_launches; the SCA's
+     counters, overflow 0). ``python3 chip_smoke.py --mapping-only`` runs
+     phases 1, 2 and 20 alone.
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
@@ -174,7 +192,9 @@ one 450x800 render of each profile, and for S1 and S2 their launches on
 phase 18's frames (serve_occ) and CLI (serve_occ_cli) and their device time
 in a profiled frame (frame_ms, frame_launches), and with S1b their launches
 in phase 19's steps (train_occ) and CLI (train_occ_cli) and their device
-time in a profiled step (step_ms, step_launches); the last line is {"ok": true,
+time in a profiled step (step_ms, step_launches), and for S3 its launches in
+phase 20's counted frame (serve_map) and its device time in a profiled
+frame (frame_ms, frame_launches); the last line is {"ok": true,
 "device": {...}}. Writes the prior pickles, the profile tables and phase
 17's outputs under outputs/chip_smoke/.
 """
@@ -235,6 +255,9 @@ KERNEL_GLOBALS = {
     "stereo_cost_volume_fwd": ("stereo_cost_volume_kernel",),
     # S1b: one gather a call.
     "bev_pool_bwd": ("bev_pool_bwd_kernel",),
+    # S3: one launch a call each.
+    "msda_fwd": ("msda_fwd_kernel",),
+    "deform_im2col_fwd": ("deform_im2col_kernel",),
 }
 # Stage 3 (occupancy serving, phase 18, and training, phase 19): hand
 # kernels for the JAX package's XLA stand-ins of the reference's own CUDA
@@ -248,6 +271,14 @@ OCC_KERNEL_INFO = {
                      "presight_tpu/occupancy/bev_pool.py:29"),
 }
 OCC_SERVE_KERNELS = ("bev_pool_fwd", "stereo_cost_volume_fwd")
+# Stage-3 online mapping (serving, phase 20): S3 for the JAX package's XLA
+# gathers (no TPU kernel), standing in for mmcv's MSDA and DCNv2.
+MAP_KERNEL_INFO = {
+    "msda_fwd": ("presight_tpu_torch/csrc/deformable.cu",
+                 "presight_tpu/mapping/bev_encoder.py:90"),
+    "deform_im2col_fwd": ("presight_tpu_torch/csrc/deformable.cu",
+                          "presight_tpu/mapping/bev_encoder.py:108"),
+}
 SERVE_KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
                  "prop_grid_density_fwd")
 # Published peaks of one H100 SXM at 700 W: HBM bandwidth, f32 outside the
@@ -417,7 +448,7 @@ class Checker:
     and reported, and makes the run fail at the end of the phase."""
 
     def __init__(self):
-        self.errors = {name: 0.0 for name in [*KERNEL_INFO, *OCC_KERNEL_INFO]}
+        self.errors = {name: 0.0 for name in [*KERNEL_INFO, *OCC_KERNEL_INFO, *MAP_KERNEL_INFO]}
         self.times = {}
         self.device = {}
         self.library = {}
@@ -3212,6 +3243,290 @@ def occupancy_train_phase(chk: Checker, card: str):
     return launches, cli_launches, step, problems
 
 
+MAP_CONFIG = "smn_wcamprior_480_100x50_24e_randomdrop"
+MAP_SOURCE_HW = (900, 1600)  # nuScenes images, resized to the model's input without a crop
+MAP_PRIOR_VOXELS = 20_000  # the prior contract's cap
+MAP_EMBEDDINGS = ("bev_queries", "pos_row", "pos_col", "bev_pos", "queries", "query_pos")
+MAP_OFFSET_BIAS_STD = 1.0
+# S3 against its plain version on a frame's recorded inputs, at the cuda
+# tests' tolerances: msda_fwd within MSDA_ATOL_FRAC of the plain output's
+# largest value + MSDA_RTOL (one fused chain of corner and attention
+# weights against the corners blended first); deform_im2col_fwd within
+# IM2COL_ATOL_FRAC of the input's largest value + IM2COL_RTOL (fmaf blends).
+MSDA_RTOL, MSDA_ATOL_FRAC = 1e-5, 1e-5
+IM2COL_RTOL, IM2COL_ATOL_FRAC = 1e-5, 1e-6
+# Whole frames with the kernels against the same frames with S3's plain
+# versions (plain=True) on the card, as max |gap| over the plain output's
+# largest value: the same convolutions and products, S3's sums in other
+# orders, carried through the encoder, the ConvGRU, the prior fusion and
+# six decoder layers. The port against the benchmark's reference on the
+# card reads up to 3.6e-5 (scores) and 1.7e-6 (BEV) over 22 runs: these
+# limits are ~5x and ~10x that, and half the cell's own.
+MAP_REL_GAP = {"scores": 2e-4, "lines": 2e-4, "bev": 2e-5, "prop_queries": 2e-4}
+
+
+def map_weights(model, seed: int):
+    """Weights in flax's default draws, from one CPU generator in state_dict
+    order (kernels N(0, 1 / fan-in), biases 0, norms at identity,
+    embeddings N(0, 0.02^2)), but for the biases of every sampling-offset
+    projection and of DCNv2's (dy, dx) taps, N(0, 1): the taps land between
+    pixel centres, one to two cells away, where flax's zero init would put
+    every DCN tap on a centre."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            leaf, shape = name.rsplit(".", 1)[-1], tuple(t.shape)
+            if leaf in MAP_EMBEDDINGS:
+                v = torch.randn(shape, generator=g) * 0.02
+            elif leaf == "kernel_w":  # DCNv2's (k*k*C, F) kernel: fan-in on the first axis
+                v = torch.randn(shape, generator=g) / shape[0] ** 0.5
+            elif len(shape) >= 2:
+                v = torch.randn(shape, generator=g) / float(np.prod(shape[1:])) ** 0.5
+            else:
+                v = torch.zeros(shape)
+                if name.endswith("sampling_offsets.bias"):
+                    v = torch.randn(shape, generator=g) * MAP_OFFSET_BIAS_STD
+                elif name.endswith("offset_mask.bias"):  # (dy, dx) of the k*k taps, then masks
+                    taps = shape[0] // 3
+                    v[:2 * taps] = torch.randn((2 * taps,), generator=g) * MAP_OFFSET_BIAS_STD
+                elif leaf in ("weight", "running_var"):  # a norm's scale or variance
+                    v.fill_(1.0)
+            t.copy_(v.to(t.dtype))
+    return model
+
+
+def map_rig(img_hw, device):
+    """Phase 18's rig (occ_rig) for the mapping model: lidar2img (6, 4, 4)
+    of each 1600x900 camera resized to ``img_hw`` without a crop, and the
+    2D ego motion prev2curr (3, 3)."""
+    (s2e, *_), _, p2c = occ_rig(None, "cpu")
+    H, W = img_hw
+    scale = np.diag([W / MAP_SOURCE_HW[1], H / MAP_SOURCE_HW[0], 1.0, 1.0])
+    viewpad = np.eye(4)
+    viewpad[:3, :3] = np.asarray(OCC_INTRINSICS, np.float64)
+    s2e = s2e[0].double().numpy()
+    l2i = np.stack([scale @ viewpad @ np.linalg.inv(s2e[i]) for i in range(len(s2e))])
+    return torch.as_tensor(l2i.astype(np.float32), device=device), p2c[0].to(device)
+
+
+def map_priors(cfg, rng, device):
+    """MAP_PRIOR_VOXELS distinct voxels of the prior grid, (z, y, x), with
+    68 standard-normal channels: the padded prior contract, full."""
+    lo, hi = np.asarray(cfg.prior_pc_range[:3]), np.asarray(cfg.prior_pc_range[3:])
+    X, Y, Z = (int(v) for v in np.ceil((hi - lo) / np.asarray(cfg.prior_voxel_size)))
+    cells = rng.permutation(X * Y * Z)[:MAP_PRIOR_VOXELS]
+    coords = np.stack([cells // (Y * X), (cells // X) % Y, cells % X], -1).astype(np.int32)
+    feats = rng.randn(MAP_PRIOR_VOXELS, cfg.prior_voxel_channels).astype(np.float32)
+    return {"prior_feats": torch.as_tensor(feats, device=device),
+            "prior_coords": torch.as_tensor(coords, device=device),
+            "prior_valid": torch.ones(MAP_PRIOR_VOXELS, dtype=torch.bool, device=device)}
+
+
+@contextlib.contextmanager
+def recording_s3(deformable):
+    """While active, keep a copy of the arguments of every S3 launch
+    (msda_fwd, deform_im2col_fwd), in order, as (name, args)."""
+    calls, real = [], {n: getattr(deformable, n) for n in MAP_KERNEL_INFO}
+
+    def wrap(name, fn):
+        def call(*args):
+            calls.append((name, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                      for a in args)))
+            return fn(*args)
+        return call
+
+    for name, fn in real.items():
+        setattr(deformable, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(deformable, name, fn)
+
+
+def s3_work(name, args):
+    """(bytes, FLOPs) of one S3 call, as the benchmark counts them
+    (portbench/counts/map.py): msda_fwd reads the value rows, the locations
+    and weights once and writes the output, 8 FLOPs a tap and channel;
+    deform_im2col_fwd reads x, the offsets and the mask once and writes the
+    columns, 9 FLOPs a column entry."""
+    if name == "msda_fwd":
+        value, _, _, attn = args
+        B, Q, Hh, L, T = attn.shape
+        R, D = value.shape[1:]
+        taps = B * Q * Hh * L * T
+        return 4.0 * (B * R * D + 3 * taps + B * Q * D), 8.0 * B * Q * D * L * T
+    x, offsets, _, k = args[:4]
+    B, H, W, C = x.shape
+    entries = B * offsets.shape[1] * offsets.shape[2] * k * k
+    return 4.0 * (B * H * W * C + 3 * entries + entries * C), 9.0 * entries * C
+
+
+@torch.no_grad()
+def mapping_phase(chk: Checker, card: str):
+    """Phase 20: StreamMapNet serving at the published widths (see the
+    module docstring). Returns (launches on the main path's frame,
+    {kernel: (device ms, launches) of a profiled frame}, problems)."""
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.configs.stage3_configs import map_configs
+    from presight_tpu_torch.mapping import StreamMapNet
+    from presight_tpu_torch.mapping import deformable as DF
+    from presight_tpu_torch.utils.profiler import COUNTS
+
+    problems = []
+    dev = torch.device("cuda")
+    cfg = map_configs[MAP_CONFIG]()
+    t0 = time.perf_counter()
+    model = map_weights(StreamMapNet(cfg, device=dev), SEED).eval()
+    torch.cuda.synchronize()
+    H, W = cfg.img_size
+    print(f"  {MAP_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters, init "
+          f"{time.perf_counter() - t0:.2f} s; 6 x {H} x {W}, BEV {cfg.bev_hw}, "
+          f"{cfg.num_queries} queries x {cfg.num_points} points, top-{cfg.topk_propagate}, "
+          f"{MAP_PRIOR_VOXELS} prior voxels")
+    l2i, p2c = map_rig(cfg.img_size, dev)
+    rng = np.random.RandomState(SEED)
+    imgs = [torch.as_tensor(rng.randn(6, 3, H, W).astype(np.float32), device=dev)
+            for _ in range(2)]
+    priors = [map_priors(cfg, rng, dev) for _ in range(2)]
+
+    def frame(i, carried=None, plain=False):
+        history = {} if carried is None else dict(
+            prev_bev=carried["bev"], prev2curr=p2c, prev_queries=carried["prop_queries"],
+            prev_ref_pts=carried["prop_ref_pts"])
+        return model(imgs[i], l2i, **priors[i], **history, plain=plain)
+
+    # Frame 1 from scratch, then frame 2 from its BEV and hand-off with every
+    # S3 launch recorded; then the main path, counted: frame 2 again.
+    out1 = frame(0)
+    with recording_s3(DF) as rec:
+        out2 = frame(1, out1)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    again = frame(1, out1)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"  frame 2 (counted): {time.perf_counter() - t0:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    expect = {"msda_fwd": 2 * cfg.enc_layers + cfg.dec_layers, "deform_im2col_fwd": 2}
+    for name, n in launches.items():
+        if n != expect.get(name, 0):
+            problems.append(f"{name} launched {n} times in a mapped frame, not "
+                            f"{expect.get(name, 0)}")
+    P, D = cfg.num_points, cfg.embed_dim
+    shapes = {"scores": (cfg.num_queries, cfg.num_classes), "lines": (cfg.num_queries, P, 2),
+              "bev": (D, *cfg.bev_hw), "prop_queries": (cfg.topk_propagate, D),
+              "prop_ref_pts": (cfg.topk_propagate, P, 2)}
+    for key, want in shapes.items():
+        for label, out in (("frame 1", out1), ("frame 2", out2)):
+            if tuple(out[key].shape) != want:
+                problems.append(f"{label} {key} has shape {tuple(out[key].shape)}, not {want}")
+            if not bool(torch.isfinite(out[key]).all()):
+                problems.append(f"{label} {key} is not finite")
+    same = all(torch.equal(again[k], out2[k]) for k in shapes)
+    print(f"  frame 2 twice from the same state: {'bitwise equal' if same else 'differs'}; "
+          f"BEV frame 2 - frame 1 max {float((out2['bev'] - out1['bev']).abs().max()):.4e}")
+
+    # Both frames with S3's plain versions on the card, from the same state.
+    plain = [frame(0, plain=True), frame(1, out1, plain=True)]
+    for label, got, want in (("frame 1", out1, plain[0]), ("frame 2", out2, plain[1])):
+        gaps = {k: float((got[k].double() - want[k].double()).abs().max()
+                         / want[k].double().abs().max()) for k in MAP_REL_GAP}
+        choices = all(torch.equal(got[k], want[k]) for k in ("prop_index", "keep") if k in got)
+        ok = choices and all(gaps[k] <= lim for k, lim in MAP_REL_GAP.items())
+        print(f"  {label}, kernels vs plain versions on the card: " + ", ".join(
+            f"{k} {v:.3e} (<= {MAP_REL_GAP[k]:g})" for k, v in gaps.items())
+            + f"; top-k choices {'equal' if choices else 'DIFFER'} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"{label} with the kernels differs from the plain versions")
+    del plain, again
+
+    # Each recorded S3 call against its plain version on the same inputs,
+    # checked and timed, beside its bound.
+    sites = (["tsa", "sca"] * cfg.enc_layers + [f"decoder {i}" for i in range(cfg.dec_layers)])
+    labels = {"msda_fwd": iter(sites), "deform_im2col_fwd": iter(["dcn stage 3", "dcn stage 4"])}
+    plain_fn = {"msda_fwd": DF.msda_plain, "deform_im2col_fwd": DF.deform_im2col_plain}
+    totals = {name: [0.0, 0.0, 0.0, 0.0, set()] for name in MAP_KERNEL_INFO}
+    for name, args in rec:
+        site = next(labels[name], "extra")
+        kernel = getattr(DF, name)
+        got, want = kernel(*args), plain_fn[name](*args)
+        if name == "msda_fwd":
+            atol, rtol = MSDA_ATOL_FRAC * float(want.abs().max()), MSDA_RTOL
+        else:
+            atol, rtol = IM2COL_ATOL_FRAC * float(args[0].abs().max()), IM2COL_RTOL
+        chk.close(name, f"frame 2 {site}", got, want, atol, rtol)
+        if not torch.equal(got, kernel(*args)):
+            problems.append(f"{name} {site}: two calls differ")
+        del got, want
+        k_ms = time_ms(lambda: kernel(*args))
+        p_ms = time_ms(lambda: plain_fn[name](*args))
+        d_ms = device_ms(lambda: kernel(*args))
+        nbytes, flops = s3_work(name, args)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  time {name} {site} ({card}): kernel {k_ms:.4f} ms (device {d_ms:.4f} ms), "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share {b_ms / d_ms:.3f}")
+        t = totals[name]
+        t[0], t[1], t[2], t[3] = t[0] + k_ms, t[1] + p_ms, t[2] + d_ms, t[3] + b_ms
+        t[4].add(b_by)
+    for name, (k_ms, p_ms, d_ms, b_ms, by) in totals.items():
+        chk.times[name], chk.device[name] = (k_ms, p_ms), d_ms
+        chk.library[name] = None  # no PyTorch call computes it
+        chk.bounds[name] = (b_ms, " and ".join(sorted(by)))
+        print(f"  time {name}, a frame's {expect[name]} calls ({card}): kernel {k_ms:.4f} ms "
+              f"(device {d_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, share "
+              f"{b_ms / max(d_ms, 1e-12):.3f}")
+    recorded = collections.Counter(n for n, _ in rec)
+    if recorded != collections.Counter(expect):
+        problems.append(f"S3 calls recorded in frame 2: {dict(recorded)}, not {expect}")
+    del rec
+
+    # Per-frame times (host clock, synchronised), peak memory, a profile
+    # (whose frame also counts the SCA's slots: profiling() is true).
+    torch.cuda.empty_cache()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame(1, out1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    frame(1, out1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  forward per frame ({card}), host clock, synchronised, median of 5: frame 2 "
+          f"{statistics.median(times) * 1e3:.1f} ms {[round(t * 1e3, 1) for t in times]}; "
+          f"peak memory {peak:.3f} GiB")
+    counters = ("map.sca_pairs", "map.sca_slots", "map.sca_overflow")
+    before = {k: COUNTS[k] for k in counters}
+    frame_prof = profile_device("profiled mapped frame 2", lambda: frame(1, out1),
+                                "map_frame_profile.txt", names=tuple(MAP_KERNEL_INFO))
+    frame_prof = {name: (frame_prof[name][0], kernels.LAUNCHES[name]) for name in MAP_KERNEL_INFO}
+    counted = {k: COUNTS[k] - before[k] for k in counters}
+    print(f"  SCA counters of the profiled frame(s): {counted} (sca_fill "
+          f"{100.0 * counted['map.sca_pairs'] / max(counted['map.sca_slots'], 1):.2f}%)")
+    if counted["map.sca_slots"] <= 0 or counted["map.sca_overflow"] != 0:
+        problems.append(f"the profiled frame's SCA counters read {counted}: nothing counted, "
+                        "or the rig overflowed the capacity")
+    return launches, frame_prof, problems
+
+
+def map_entries(chk: Checker, launches, frame):
+    """The kernels JSON line's entries of S3: launches in the main path's
+    frame (serve_map), device time and launches in a profiled frame."""
+    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+             "launches": launches.get(name, 0), "launches_by_path": {
+                 "serve_map": launches.get(name, 0)},
+             "max_abs_err": chk.errors[name], "ms": chk.times[name][0],
+             "device_ms": chk.device[name], "plain_ms": chk.times[name][1],
+             "bound_ms": chk.bounds[name][0], "bound_by": chk.bounds[name][1],
+             "library_ms": chk.library.get(name), "frame_ms": frame[name][0],
+             "frame_launches": frame[name][1]}
+            for name, (src, replaces) in MAP_KERNEL_INFO.items()]
+
+
 def occ_entries(chk: Checker, paths, frame, step):
     """The kernels JSON line's entries of S1, S2 and S1b: launches in all
     and by path (serve_occ, serve_occ_cli, train_occ, train_occ_cli), and
@@ -3261,6 +3576,20 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     sass_report(lib_path)
+    if "--mapping-only" in sys.argv[1:]:
+        print(f"phase 20 alone (--mapping-only): {MAP_CONFIG} served on the card")
+        chk = Checker()
+        map_launches, map_frame, problems = mapping_phase(chk, card)
+        problems += chk.failures
+        if problems:
+            print("phase 20 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+            return 1
+        print(f"phases 1, 2 and 20 passed in {time.perf_counter() - t_start:.0f} s")
+        print(json.dumps({"kernels": map_entries(chk, map_launches, map_frame)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if "--occupancy-only" in sys.argv[1:]:
         print("phases 18 and 19 alone (--occupancy-only): occupancy serving and training")
         chk = Checker()
@@ -3531,6 +3860,13 @@ def main() -> int:
     if problems:
         print("phase 19 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
+    torch.cuda.empty_cache()
+    print(f"phase 20: {MAP_CONFIG} served on the card ({time.perf_counter() - t_start:.0f} s in)")
+    map_launches, map_frame, problems = mapping_phase(chk, card)
+    problems += chk.failures
+    if problems:
+        print("phase 20 FAILED:\n  " + "\n  ".join(problems), file=sys.stderr)
+        return 1
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
 
     paths = {"serve": serve_launches, "train": train_launches,
@@ -3554,7 +3890,8 @@ def main() -> int:
         for name, (src, replaces) in KERNEL_INFO.items()]
         + occ_entries(chk, {"serve_occ": occ_launches, "serve_occ_cli": occ_cli_launches,
                             "train_occ": train_occ_launches,
-                            "train_occ_cli": train_occ_cli_launches}, frame, occ_step)}))
+                            "train_occ_cli": train_occ_cli_launches}, frame, occ_step)
+        + map_entries(chk, map_launches, map_frame)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

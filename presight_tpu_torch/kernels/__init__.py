@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
            "prop_grid_density_fwd", "hash_encode_bwd", "mlp_blocks_bwd",
            "volume_render_bwd", "sorted_accum", "bev_pool_fwd", "stereo_cost_volume_fwd",
-           "bev_pool_bwd")
+           "bev_pool_bwd", "msda_fwd", "deform_im2col_fwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -78,6 +78,11 @@ _ARGTYPES = {
                      _P, _P, _P],
     # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
     "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    # value, loc, attn, levels (host array of 3 * L int64: h, w, first row),
+    # B, Q, R, D, heads, L, T, out, stream
+    "msda_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P],
+    # x (NHWC), offsets, mask, B, H, W, C, Ho, Wo, k, stride, cols, stream
+    "deform_im2col_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 # C functions that launch nothing: (argtypes, restype).

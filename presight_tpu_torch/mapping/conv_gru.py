@@ -1,7 +1,8 @@
-"""Streaming BEV memory: the ego-motion warp of the previous BEV, the port
-of ``warp_bev`` in presight_tpu/mapping/conv_gru.py (BEVDet-Occ's temporal
-align uses it, occupancy/bevdet_occ.py:210-235). The ConvGRU fuse of the
-same JAX module comes with the mapping port.
+"""Streaming BEV memory: the ego-motion warp of the previous BEV and the
+ConvGRU that fuses it with the current one, the port of
+presight_tpu/mapping/conv_gru.py (reference online-mapping/plugin/models/
+necks/gru.py:9-41 and StreamMapNet.update_bev_feature). BEVDet-Occ's
+temporal align uses the warp too (occupancy/bevdet_occ.py:210-235).
 """
 
 from __future__ import annotations
@@ -9,6 +10,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.layers import Conv
 
 
 def warp_bev(prev_bev: torch.Tensor, prev2curr: torch.Tensor,
@@ -45,3 +50,38 @@ def warp_bev(prev_bev: torch.Tensor, prev2curr: torch.Tensor,
             + tap(y0, x0 + 1) * ((1 - wy) * wx)[None]
             + tap(y0 + 1, x0) * (wy * (1 - wx))[None]
             + tap(y0 + 1, x0 + 1) * (wy * wx)[None])
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm over the last axis (epsilon 1e-6)."""
+
+    EPS = 1e-6
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, device=device))
+        self.bias = nn.Parameter(torch.empty(channels, device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.EPS)
+
+
+class ConvGRU(nn.Module):
+    """gru.py:9-41: update and reset gates from 1x1 convs (no bias) over
+    [h, x], the candidate from [r * h, x], then LayerNorm over the channels
+    (flax's, epsilon 1e-6). h, x: (C, H, W)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.convz = Conv(2 * channels, channels, (1, 1), bias=False, device=device)
+        self.convr = Conv(2 * channels, channels, (1, 1), bias=False, device=device)
+        self.convq = Conv(2 * channels, channels, (1, 1), bias=False, device=device)
+        self.LayerNorm_0 = LayerNorm(channels, device)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hx = torch.cat([h, x])[None]
+        z = torch.sigmoid(self.convz(hx))
+        r = torch.sigmoid(self.convr(hx))
+        q = self.convq(torch.cat([r * h[None], x[None]], 1))
+        out = (1 - z) * h[None] + z * q
+        return self.LayerNorm_0(out[0].permute(1, 2, 0)).permute(2, 0, 1)

@@ -1,7 +1,7 @@
-"""Voxel prior fusion for BEVDet-Occ: the port of PriorFusion3DVoxel and its
-parts from presight_tpu/models/prior_fusion.py (reference
-occupancy/mmdet3d/models/necks/prior_fusion_module.py:133-245). The 2D
-fusion of online mapping (PriorFusion2D) comes with the mapping port.
+"""Voxel prior fusion, the port of presight_tpu/models/prior_fusion.py
+(reference occupancy/mmdet3d/models/necks/prior_fusion_module.py):
+PriorFusion3DVoxel for BEVDet-Occ (:133-245) and PriorFusion2D for online
+mapping (:11-131), with their shared parts.
 """
 
 from __future__ import annotations
@@ -117,3 +117,43 @@ class PriorFusion3DVoxel(nn.Module):
         x = x.reshape(bs, -1, self.out_num_z, bev_h, bev_w).permute(0, 1, 3, 4, 2)
         y = self.BatchNorm_0(self.Conv_0(torch.cat([bev_feats, x], dim=1)))
         return F.relu(y + bev_feats) if self.residual else F.relu(y)
+
+
+class PriorFusion2D(nn.Module):
+    """(prior_fusion_module.py:11-131): the voxelized prior, through a
+    per-voxel MLP and a dense grid, max-pooled over z into
+    ``num_pool_buckets`` buckets, flattened to (hidden * buckets, y, x),
+    two conv-BN-ReLU blocks, a bilinear resize to the BEV's size, then
+    concatenated with the BEV (bs, c, h, w) and fused by two more."""
+
+    def __init__(self, prior_pc_range: Sequence[float], prior_voxel_size: Sequence[float],
+                 bev_feats_channels: int = 256, voxel_channels: int = 68,
+                 num_pool_buckets: int = 4, hidden_channels: int = 256, device=None):
+        super().__init__()
+        self.resolution = voxel_resolution(prior_pc_range, prior_voxel_size)
+        num_prior_z = int((prior_pc_range[5] - prior_pc_range[2]) / prior_voxel_size[2])
+        self.buckets, self.z_pooled = num_pool_buckets, num_prior_z // num_pool_buckets
+        hidden, bev_c = hidden_channels, bev_feats_channels
+        self.VoxelFeatureExtractor_0 = VoxelFeatureExtractor(voxel_channels, hidden, device)
+        self._ConvBNReLU_0 = _ConvBNReLU(hidden * num_pool_buckets, hidden, 1, device=device)
+        self._ConvBNReLU_1 = _ConvBNReLU(hidden, hidden, 3, device=device)
+        self._ConvBNReLU_2 = _ConvBNReLU(bev_c + hidden, bev_c, 1, device=device)
+        self._ConvBNReLU_3 = _ConvBNReLU(bev_c, bev_c, 3, device=device)
+
+    def forward(self, bev_feats, prior_feats, prior_coords, prior_valid):
+        """bev_feats (bs, c, h, w); prior_feats (bs, V, C), prior_coords
+        (bs, V, 3) int (z, y, x), prior_valid (bs, V) bool."""
+        bs, _, bev_h, bev_w = bev_feats.shape
+        rx, ry, rz = self.resolution
+        feats = self.VoxelFeatureExtractor_0(prior_feats)
+        grids = torch.stack([formulate_voxels(feats[b], prior_coords[b], prior_valid[b],
+                                              self.resolution) for b in range(bs)])
+        # the JAX package's (bs, hidden, y, x, buckets, z_pooled) max, taken
+        # before the transpose (a max is exact in any order)
+        pooled = grids.reshape(bs, rx, ry, self.buckets, self.z_pooled, -1).amax(4)
+        x = pooled.permute(0, 4, 3, 2, 1).reshape(bs, -1, ry, rx)  # (bs, hidden * buckets, y, x)
+        x = self._ConvBNReLU_1(self._ConvBNReLU_0(x))
+        if tuple(x.shape[-2:]) != (bev_h, bev_w):
+            x = _resize_bilinear(x, (bev_h, bev_w))
+        x = torch.cat([bev_feats, x], 1)
+        return self._ConvBNReLU_3(self._ConvBNReLU_2(x))

@@ -11,7 +11,9 @@ its phases share.
 ``count(name, n)`` adds ``n`` to ``COUNTS[name]``: integer counters that
 always run and add up over the life of the process, as
 ``kernels.LAUNCHES`` does. Callers count once per chunk or call, never per
-element; readers take ratios of counters of one layer.
+element; readers take ratios of counters of one layer. A count that needs
+a value from the device (a wait for the card) is taken only where
+``profiling()``, inside a session.
 """
 
 from __future__ import annotations
@@ -25,6 +27,11 @@ from torch.profiler import record_function
 COUNTS: Counter = Counter()
 
 _OFF = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler session is active."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def span(name: str):

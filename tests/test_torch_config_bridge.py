@@ -201,7 +201,7 @@ def test_kernel_build_is_lazy_and_keyed_on_sources():
     assert {p.name for p in kernels.CSRC.glob("*.cu")} == {
         "hash_encode.cu", "mlp_blocks.cu", "volume_render.cu", "prop_grid.cu",
         "hash_encode_bwd.cu", "mlp_blocks_bwd.cu", "volume_render_bwd.cu", "sorted_accum.cu",
-        "bev_pool.cu", "stereo_cost.cu"}
+        "bev_pool.cu", "stereo_cost.cu", "deformable.cu"}
     assert set(kernels.KERNELS) == set(kernels._ARGTYPES)
 
 
@@ -209,6 +209,7 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
     """A wrapper takes its plain version only for CPU tensors; any other
     device must launch the kernel or raise (here: 'meta' tensors)."""
     from presight_tpu_torch.fields.prop_field import prop_grid_density
+    from presight_tpu_torch.mapping.deformable import deform_im2col, msda
     from presight_tpu_torch.occupancy import bev_pool_v2, stereo_cost_volume
     from presight_tpu_torch.occupancy.bev_pool import bev_pool_bwd
     from presight_tpu_torch.ops.hash_encoding import hash_encode
@@ -246,4 +247,12 @@ def test_kernel_wrappers_raise_on_non_cpu_tensors_they_cannot_launch():
         stereo_cost_volume(torch.zeros((2, 3, 4, 8), device=meta),
                            torch.zeros((2, 3, 4, 8), device=meta),
                            torch.zeros((2, 5 * 3 * 4, 2), device=meta), 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        msda(torch.zeros((1, 20, 64), device=meta), [(4, 5, 0)],
+             torch.zeros((1, 3, 2, 1, 2, 2), device=meta),
+             torch.zeros((1, 3, 2, 1, 2), device=meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        deform_im2col(torch.zeros((1, 4, 5, 8), device=meta),
+                      torch.zeros((1, 4, 5, 9, 2), device=meta),
+                      torch.zeros((1, 4, 5, 9), device=meta), 3)
     assert kernels._lib is None

@@ -1142,3 +1142,105 @@ def test_extraction_on_the_card_keeps_numpy_bits_under_tf32(tmp_path):
         assert float((tf32 - want).abs().max()) > 1e-4
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _msda_inputs(rng, B, Q, Hh, shapes, T, hd=32, same_rows=False):
+    """Value rows of ``shapes`` levels (one table shared by every level with
+    ``same_rows``, as the temporal self-attention's two queues share it),
+    and taps spread one to two cells round random points of each level, with
+    exact integers, coordinates outside the map and a share of zero
+    weights among them."""
+    from presight_tpu_torch.mapping.deformable import level_rows
+
+    levels = ([(H, W, 0) for H, W in shapes] if same_rows else level_rows(shapes))
+    R = max(s + H * W for H, W, s in levels)
+    L = len(shapes)
+    value = rng.randn(B, R, Hh * hd).astype(np.float32)
+    dims = np.array([[W, H] for H, W in shapes], np.float32)  # (L, 2) as (x, y)
+    loc = (rng.rand(B, Q, Hh, L, T, 2) * (dims[:, None] + 2) - 1
+           + rng.randn(B, Q, Hh, L, T, 2) * 1.5).astype(np.float32)
+    loc[:, ::5] = np.round(loc[:, ::5])
+    loc[:, ::11, :, :, :, 0] = -1.0
+    loc[:, ::13, :, :, :, 1] = dims[None, None, None, :, 1, None] - 1.0
+    attn = rng.rand(B, Q, Hh, L, T).astype(np.float32)
+    attn[:, ::7] = 0.0
+    return levels, value, loc, attn
+
+
+# The three attention sites at the reference shapes: the temporal
+# self-attention (two queues over one 50 x 100 table), the spatial
+# cross-attention over six cameras' 2,500 compacted slots (3 levels x 8
+# taps), a decoder layer's cross-attention (100 queries x 20 points); and a
+# head width of 16.
+MSDA_CASES = [("tsa", 1, 5000, 8, [(50, 100), (50, 100)], 4, 32, True),
+              ("sca", 6, 2500, 8, [(60, 100), (30, 50), (15, 25)], 8, 32, False),
+              ("decoder", 1, 100, 8, [(50, 100)], 20, 32, False),
+              ("narrow", 2, 300, 4, [(13, 17), (7, 9)], 5, 16, False)]
+
+
+@pytest.mark.parametrize("site,B,Q,Hh,shapes,T,hd,same_rows", MSDA_CASES)
+def test_msda_kernel_matches_plain(site, B, Q, Hh, shapes, T, hd, same_rows):
+    """S3 ``msda_fwd`` against its plain version (four gathers a tap) on the
+    card, at atol 1e-5 of the largest output + rtol 1e-5: the kernel takes
+    each corner's weight times the attention weight and sums the taps and
+    corners in one fused chain, the plain version the corners first, then
+    the weighted taps; two calls bitwise equal."""
+    _need_cuda()
+    from presight_tpu_torch.mapping.deformable import msda
+
+    rng = np.random.RandomState(len(site))
+    levels, *arrays = _msda_inputs(rng, B, Q, Hh, shapes, T, hd, same_rows)
+    value, loc, attn = (torch.from_numpy(a).cuda() for a in arrays)
+    with torch.no_grad():
+        got = msda(value, levels, loc, attn)
+        again = msda(value, levels, loc, attn)
+        want = msda(value, levels, loc, attn, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("B,H,W,C", [(6, 30, 50, 1024), (6, 15, 25, 2048), (2, 9, 11, 37)])
+def test_deform_im2col_kernel_matches_plain(B, H, W, C):
+    """S3 ``deform_im2col_fwd`` against its plain version on the card: the
+    two DCNv2 layers' shapes (float4 lanes) and C = 37 (a float a lane);
+    offsets one to two cells, exact integers and taps outside the map;
+    within rtol 1e-5 + atol 1e-6 of the largest input (the kernel blends the
+    four corners by fmaf); two calls bitwise equal."""
+    _need_cuda()
+    from presight_tpu_torch.mapping.deformable import deform_im2col
+
+    rng = np.random.RandomState(C)
+    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32)).cuda()
+    off = rng.randn(B, H, W, 9, 2).astype(np.float32) * 1.5
+    off[:, ::3] = np.round(off[:, ::3])
+    off[:, :, ::4, :, 1] = -3.0
+    off = torch.from_numpy(off).cuda()
+    mask = torch.from_numpy(rng.rand(B, H, W, 9).astype(np.float32)).cuda()
+    with torch.no_grad():
+        got = deform_im2col(x, off, mask, 3)
+        again = deform_im2col(x, off, mask, 3)
+        want = deform_im2col(x, off, mask, 3, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(x.abs().max()))
+
+
+def test_s3_kernels_refuse_a_gradient():
+    """The kernels are forward only: with autograd on and an input that
+    requires a gradient they raise, under no_grad they run."""
+    _need_cuda()
+    from presight_tpu_torch.mapping.deformable import deform_im2col, msda
+
+    value = torch.randn(1, 20, 64, device="cuda", requires_grad=True)
+    loc = torch.rand(1, 3, 2, 1, 2, 2, device="cuda") * 4
+    attn = torch.rand(1, 3, 2, 1, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="backward"):
+        msda(value, [(4, 5, 0)], loc, attn)
+    x = torch.randn(1, 4, 5, 8, device="cuda", requires_grad=True)
+    off = torch.randn(1, 4, 5, 9, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="backward"):
+        deform_im2col(x, off, torch.rand(1, 4, 5, 9, device="cuda"), 3)
+    with torch.no_grad():
+        assert msda(value, [(4, 5, 0)], loc, attn).shape == (1, 3, 64)
