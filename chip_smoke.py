@@ -178,8 +178,15 @@ outputs/chip_smoke/):
      bitwise equal, timed (ms, device_ms, plain_ms) beside its bound
      (s3_work), and summed for a frame; per-frame ms (median of 5), peak
      memory and a profiled frame (frame_ms, frame_launches; the SCA's
-     counters, overflow 0). ``python3 chip_smoke.py --mapping-only`` runs
-     phases 1, 2 and 20 alone.
+     counters, overflow 0). The forward's convolutions run on the cuDNN
+     engines timed fastest at each shape: map.conv_tuned counts frame 1's
+     keys and 0 on the counted frame; then both frames in a fresh process
+     with cuDNN's heuristic choosing every engine (heuristic_mapping),
+     against the tuned frames (MAP_REL_GAP, equal top-k choices), its
+     per-frame ms beside, and each image-encoder convolution shape timed
+     on the heuristic's plan and the tuned one (events_ms, TFLOP/s).
+     ``python3 chip_smoke.py --mapping-only`` runs phases 1, 2 and 20
+     alone.
 Phase 3 also checks and times K1, K1b and K5 with 'shared' tables of 2^19
 rows a level (bench.py's cap-log2-19 rung), K5 also against index_add_.
 The line before the last is a JSON object with each kernel's launches (in
@@ -3362,30 +3369,20 @@ def s3_work(name, args):
     return 4.0 * (B * H * W * C + 3 * entries + entries * C), 9.0 * entries * C
 
 
-@torch.no_grad()
-def mapping_phase(chk: Checker, card: str):
-    """Phase 20: StreamMapNet serving at the published widths (see the
-    module docstring). Returns (launches on the main path's frame,
-    {kernel: (device ms, launches) of a profiled frame}, problems)."""
-    from presight_tpu_torch import kernels
+MAP_FRAME_KEYS = ("scores", "lines", "bev", "prop_queries", "prop_ref_pts", "prop_index", "keep")
+
+
+def map_setup(dev):
+    """Phase 20's model (weights from SEED), rig, and two frames' images
+    and priors: the same in every process."""
     from presight_tpu_torch.configs.stage3_configs import map_configs
     from presight_tpu_torch.mapping import StreamMapNet
-    from presight_tpu_torch.mapping import deformable as DF
-    from presight_tpu_torch.utils.profiler import COUNTS
 
-    problems = []
-    dev = torch.device("cuda")
     cfg = map_configs[MAP_CONFIG]()
-    t0 = time.perf_counter()
     model = map_weights(StreamMapNet(cfg, device=dev), SEED).eval()
-    torch.cuda.synchronize()
-    H, W = cfg.img_size
-    print(f"  {MAP_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters, init "
-          f"{time.perf_counter() - t0:.2f} s; 6 x {H} x {W}, BEV {cfg.bev_hw}, "
-          f"{cfg.num_queries} queries x {cfg.num_points} points, top-{cfg.topk_propagate}, "
-          f"{MAP_PRIOR_VOXELS} prior voxels")
     l2i, p2c = map_rig(cfg.img_size, dev)
     rng = np.random.RandomState(SEED)
+    H, W = cfg.img_size
     imgs = [torch.as_tensor(rng.randn(6, 3, H, W).astype(np.float32), device=dev)
             for _ in range(2)]
     priors = [map_priors(cfg, rng, dev) for _ in range(2)]
@@ -3396,19 +3393,155 @@ def mapping_phase(chk: Checker, card: str):
             prev_ref_pts=carried["prop_ref_pts"])
         return model(imgs[i], l2i, **priors[i], **history, plain=plain)
 
+    return cfg, model, imgs, frame
+
+
+@contextlib.contextmanager
+def recording_conv2d():
+    """While active, each F.conv2d call's (input shape, weight shape,
+    stride, padding), in order: what cuDNN is handed."""
+    import torch.nn.functional as F
+
+    calls, real = [], F.conv2d
+
+    def conv2d(x, w, bias=None, stride=1, padding=0, *args):
+        pads = tuple(padding) if isinstance(padding, (list, tuple)) else (padding,) * 2
+        calls.append((tuple(x.shape), tuple(w.shape), stride, pads))
+        return real(x, w, bias, stride, padding, *args)
+
+    F.conv2d = conv2d
+    try:
+        yield calls
+    finally:
+        F.conv2d = real
+
+
+def conv_flops(key) -> float:
+    """2 x output elements x (input channels x kernel taps) of one call."""
+    (n, _, h, w), (co, ci, kh, kw), stride, (ph, pw) = key
+    ho, wo = (h + 2 * ph - kh) // stride + 1, (w + 2 * pw - kw) // stride + 1
+    return 2.0 * n * co * ho * wo * ci * kh * kw
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Milliseconds per call of fn(), by CUDA events around ``reps`` calls
+    in a row after two more: device_ms without its spin, for calls that
+    wait for the card themselves (device_ms refused F.conv2d on the
+    heuristic's plans), and so counting the host's share where it exceeds
+    the card's."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def conv_shape_ms(keys):
+    """events_ms of one convolution of each key (random operands, no
+    bias), IEEE f32, on the plan cuDNN holds for the key in this process:
+    the one its first call chose (under cuDNN's timing if active then)."""
+    import torch.nn.functional as F
+
+    from presight_tpu_torch.utils.precision import ieee_convolutions
+
+    out = []
+    with torch.no_grad(), ieee_convolutions():
+        for xs, ws, stride, pads in keys:
+            x = torch.randn(xs, device="cuda")
+            w = torch.randn(ws, device="cuda")
+            out.append(events_ms(lambda: F.conv2d(x, w, None, stride, pads)))
+            del x, w
+    return out
+
+
+def heuristic_mapping(keys):
+    """Phase 20's frames in a fresh process with the forward's
+    ``tuned_convolutions`` off, so that cuDNN's heuristic picks every
+    engine: frame 1 from scratch and frame 2 from it (outputs as numpy),
+    frame 2's host-clock ms (synchronised, 5 times), and conv_shape_ms of
+    ``keys`` on the heuristic's plans."""
+    from presight_tpu_torch.mapping import stream_mapnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stream_mapnet.tuned_convolutions = contextlib.nullcontext
+    with torch.no_grad():
+        _, _, _, frame = map_setup(torch.device("cuda"))
+        out1 = frame(0)
+        out2 = frame(1, out1)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(1, out1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        outs = [{k: o[k].cpu().numpy() for k in MAP_FRAME_KEYS if k in o} for o in (out1, out2)]
+    return outs, times, conv_shape_ms(keys)
+
+
+def in_fresh_process(fn, *args):
+    """fn(*args) in a spawned process (a new cuDNN plan cache), its result."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(fn, args)
+
+
+@torch.no_grad()
+def mapping_phase(chk: Checker, card: str):
+    """Phase 20: StreamMapNet serving at the published widths (see the
+    module docstring). Returns (launches on the main path's frame,
+    {kernel: (device ms, launches) of a profiled frame}, problems)."""
+    from presight_tpu_torch import kernels
+    from presight_tpu_torch.mapping import deformable as DF
+    from presight_tpu_torch.utils.precision import ieee_convolutions, tuned_convolutions
+    from presight_tpu_torch.utils.profiler import COUNTS
+
+    problems = []
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, model, imgs, frame = map_setup(dev)
+    torch.cuda.synchronize()
+    H, W = cfg.img_size
+    print(f"  {MAP_CONFIG}: {sum(p.numel() for p in model.parameters())} parameters, init "
+          f"{time.perf_counter() - t0:.2f} s; 6 x {H} x {W}, BEV {cfg.bev_hw}, "
+          f"{cfg.num_queries} queries x {cfg.num_points} points, top-{cfg.topk_propagate}, "
+          f"{MAP_PRIOR_VOXELS} prior voxels")
+
     # Frame 1 from scratch, then frame 2 from its BEV and hand-off with every
-    # S3 launch recorded; then the main path, counted: frame 2 again.
+    # S3 launch recorded; then the main path, counted: frame 2 again. cuDNN
+    # times each convolution's engines on its key's first call, so frames 1
+    # and 2 tune (map.conv_tuned: their new keys), and the counted frame 0.
+    tuned = [COUNTS["map.conv_tuned"]]
+    t0 = time.perf_counter()
     out1 = frame(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    tuned.append(COUNTS["map.conv_tuned"])
     with recording_s3(DF) as rec:
         out2 = frame(1, out1)
     torch.cuda.synchronize()
+    tuned.append(COUNTS["map.conv_tuned"])
     kernels.reset_launches()
     t0 = time.perf_counter()
     again = frame(1, out1)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    tuned = [b - a for a, b in zip(tuned, tuned[1:] + [COUNTS["map.conv_tuned"]])]
     print(f"  frame 2 (counted): {time.perf_counter() - t0:.3f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"  map.conv_tuned: frame 1 {tuned[0]} ({first_s:.2f} s, tuning included), frame 2 "
+          f"{tuned[1]}, the counted frame {tuned[2]}")
+    if tuned[0] <= 0 or tuned[2] != 0:
+        problems.append(f"map.conv_tuned counted {tuned} on frames 1, 2 and 2 again: not a "
+                        "count a key, once")
     expect = {"msda_fwd": 2 * cfg.enc_layers + cfg.dec_layers, "deform_im2col_fwd": 2}
     for name, n in launches.items():
         if n != expect.get(name, 0):
@@ -3510,6 +3643,40 @@ def mapping_phase(chk: Checker, card: str):
     if counted["map.sca_slots"] <= 0 or counted["map.sca_overflow"] != 0:
         problems.append(f"the profiled frame's SCA counters read {counted}: nothing counted, "
                         "or the rig overflowed the capacity")
+
+    # The same frames with cuDNN's heuristic choosing every convolution's
+    # engine, in a fresh process (cuDNN keeps one plan a key for a
+    # process's life), against these; and each image-encoder convolution
+    # shape timed on either plan.
+    with recording_conv2d() as calls, ieee_convolutions(), tuned_convolutions():
+        model.backbone.image_features(imgs[1])
+    keys = list(collections.Counter(calls).items())
+    heuristic, h_times, h_ms = in_fresh_process(heuristic_mapping, [k for k, _ in keys])
+    print(f"  forward per frame ({card}), cuDNN's heuristic engines, median of 5: frame 2 "
+          f"{statistics.median(h_times) * 1e3:.1f} ms {[round(t * 1e3, 1) for t in h_times]}")
+    for label, got, want in (("frame 1", out1, heuristic[0]), ("frame 2", out2, heuristic[1])):
+        gaps = {k: float((got[k].double().cpu() - torch.as_tensor(want[k]).double()).abs().max()
+                         / torch.as_tensor(want[k]).double().abs().max()) for k in MAP_REL_GAP}
+        choices = all(torch.equal(got[k].cpu(), torch.as_tensor(want[k]))
+                      for k in ("prop_index", "keep") if k in got)
+        ok = choices and all(gaps[k] <= lim for k, lim in MAP_REL_GAP.items())
+        print(f"  {label}, tuned vs heuristic convolution engines: " + ", ".join(
+            f"{k} {v:.3e} (<= {MAP_REL_GAP[k]:g})" for k, v in gaps.items())
+            + f"; top-k choices {'equal' if choices else 'DIFFER'} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"{label} with tuned convolution engines differs from the heuristic's")
+    t_ms = conv_shape_ms([k for k, _ in keys])
+    sums = [0.0, 0.0, 0.0]
+    for (key, n), h, t in zip(keys, h_ms, t_ms):
+        flops = conv_flops(key)
+        sums = [sums[0] + n * h, sums[1] + n * t, sums[2] + n * flops]
+        print(f"  conv x {key[0]} w {key[1]} stride {key[2]} pad {key[3]}, {n} a frame "
+              f"({card}): heuristic {h:.4f} ms ({flops / h * 1e-9:.2f} TFLOP/s), tuned "
+              f"{t:.4f} ms ({flops / t * 1e-9:.2f} TFLOP/s)")
+    print(f"  the image encoder's {sum(n for _, n in keys)} convolutions a frame "
+          f"({len(keys)} keys, {sums[2] * 1e-9:.1f} GFLOP): heuristic {sums[0]:.3f} ms "
+          f"({sums[2] / sums[0] * 1e-9:.2f} TFLOP/s), tuned {sums[1]:.3f} ms "
+          f"({sums[2] / sums[1] * 1e-9:.2f} TFLOP/s)")
     return launches, frame_prof, problems
 
 

@@ -5,18 +5,24 @@ BEVFormer backbone -> streaming ConvGRU BEV memory -> PriorFusion2D on the
 BEV -> MapDetectorHead), with the eval loop's top-k hand-off
 (presight_tpu/scripts/train_map.py:163-215) inside the forward.
 
-A forward runs its convolutions and matrix products in IEEE float32, and is
-spanned (utils/profiler.py): ``map.forward`` around it all;
-``map.image_encoder`` (ResNet, DCN, FPN), ``map.bev_encoder``,
-``map.stream`` (warp and ConvGRU), ``map.prior_fusion``, ``map.head``
-(decoder and the propagation pre-pass) and ``map.propagate`` (the top-k
-hand-off) in turn; ``map.msda`` and ``map.dcn_im2col`` around each S3
-launch. Inside a profiler session it counts after the hand-off, per
-encoder layer, ``map.sca_pairs`` (valid (camera, query) pairs),
-``map.sca_slots`` (cameras x capacity: the pairs S3 computes) and
-``map.sca_overflow`` (valid queries dropped past the capacity), reading
-the per-camera counts from the card once a frame, when its work is
-queued; outside one it reads nothing from the card.
+A forward runs its convolutions and matrix products in IEEE float32, each
+convolution on the cuDNN engine that timed fastest at its shape
+(``utils.precision.tuned_convolutions``), and is spanned
+(utils/profiler.py): ``map.forward`` around it all; ``map.image_encoder``
+(ResNet, DCN, FPN), ``map.bev_encoder``, ``map.stream`` (warp and
+ConvGRU), ``map.prior_fusion``, ``map.head`` (decoder and the propagation
+pre-pass) and ``map.propagate`` (the top-k hand-off) in turn; ``map.msda``
+and ``map.dcn_im2col`` around each S3 launch. Inside a profiler session it
+counts after the hand-off, per encoder layer, ``map.sca_pairs`` (valid
+(camera, query) pairs), ``map.sca_slots`` (cameras x capacity: the pairs
+S3 computes) and ``map.sca_overflow`` (valid queries dropped past the
+capacity), reading the per-camera counts from the card once a frame, when
+its work is queued; outside one it reads nothing from the card.
+``map.conv_tuned`` always counts: the model's convolution calls under
+cuDNN's timing whose key (input shape, weight shape, stride, padding,
+dtype) the process's mapping models had not met, each one cuDNN
+measurement on the card (a stream's first two frames; 0 a frame after
+them). A set lookup a convolution; it reads nothing from the card.
 """
 
 from __future__ import annotations
@@ -27,12 +33,36 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..models.layers import Conv
 from ..models.prior_fusion import PriorFusion2D
-from ..utils.precision import ieee_convolutions, ieee_matmul
+from ..utils.precision import ieee_convolutions, ieee_matmul, tuned_convolutions
 from ..utils.profiler import count, profiling, span
 from .bev_encoder import BEVEncoder
 from .conv_gru import ConvGRU, warp_bev
 from .map_head import MapDetectorHead, select_topk_for_propagation
+
+
+# cuDNN's keys of the convolutions the process's mapping models have met:
+# cuDNN keeps one plan a key for the process, so it times a key only the
+# first time, and only if that time is under its timing.
+_CONV_KEYS: set = set()
+
+
+def _count_tuned(conv: Conv, args: tuple) -> None:
+    """A forward pre-hook of each of the model's convolutions: counts
+    ``map.conv_tuned`` when cuDNN will time this call's engines. The key is
+    what cuDNN is handed: input shape (after ``Conv``'s own padding where
+    low and high differ), weight shape, stride, padding, dtype."""
+    x = args[0]
+    shape, pads = list(x.shape), conv.pads(x.shape[2:])
+    if any(lo != hi for lo, hi in pads):
+        shape[2:] = [n + lo + hi for n, (lo, hi) in zip(shape[2:], pads)]
+        pads = [(0, 0)] * len(pads)
+    key = (tuple(shape), tuple(conv.weight.shape), conv.stride, tuple(pads), x.dtype)
+    if key not in _CONV_KEYS:
+        _CONV_KEYS.add(key)
+        if torch.backends.cudnn.benchmark:
+            count("map.conv_tuned", 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +120,9 @@ class StreamMapNet(nn.Module):
             cfg.bev_hw, num_queries=cfg.num_queries, num_classes=cfg.num_classes,
             num_points=cfg.num_points, embed_dim=D, num_layers=cfg.dec_layers,
             num_heads=cfg.num_heads, roi_size=cfg.roi_size, device=device)
+        for conv in self.modules():
+            if isinstance(conv, Conv):
+                conv.register_forward_pre_hook(_count_tuned)
 
     def forward(self, imgs, lidar2img, prev_bev=None, prev2curr=None, prev_queries=None,
                 prior_feats=None, prior_coords=None, prior_valid=None, prev_ref_pts=None,
@@ -104,7 +137,7 @@ class StreamMapNet(nn.Module):
         decoder kept), bev, and the next frame's hand-off prop_queries and
         prop_ref_pts (rows prop_index of queries and ref_pts)."""
         cfg = self.cfg
-        with span("map.forward"), ieee_convolutions(), ieee_matmul():
+        with span("map.forward"), ieee_convolutions(), tuned_convolutions(), ieee_matmul():
             bev = self.backbone(imgs, lidar2img, plain)
             if prev_bev is not None and cfg.streaming_bev:
                 with span("map.stream"):

@@ -25,7 +25,7 @@ filled by :func:`init_weights` from a ``torch.Generator`` (or by the bridge).
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -54,14 +54,18 @@ class Conv(nn.Module):
                                                device=device))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device)) if bias else None
 
+    def pads(self, spatial: Sequence[int]) -> List[Tuple[int, int]]:
+        """(low, high) padding of each spatial dimension of an input of
+        these sizes."""
+        if self.padding == "SAME":
+            return [same_pads(n, k, self.stride) for n, k in zip(spatial, self.kernel)]
+        if self.padding == "VALID":
+            return [(0, 0)] * len(self.kernel)
+        return [tuple(p) for p in self.padding]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = len(self.kernel)
-        if self.padding == "SAME":
-            pads = [same_pads(n, k, self.stride) for n, k in zip(x.shape[2:], self.kernel)]
-        elif self.padding == "VALID":
-            pads = [(0, 0)] * dims
-        else:
-            pads = [tuple(p) for p in self.padding]
+        pads = self.pads(x.shape[2:])
         conv = F.conv2d if dims == 2 else F.conv3d
         if all(lo == hi for lo, hi in pads):
             return conv(x, self.weight, self.bias, self.stride, [lo for lo, _ in pads])
