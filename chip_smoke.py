@@ -151,7 +151,8 @@ outputs/chip_smoke/):
      with a camera mask, phase 18's synthetic priors; no previous frame, as
      the JAX CLI trains, so S2 does not run): one train_step's loss and
      every clipped gradient with the kernels against the same train_step
-     with plain=True (OCC_* tolerances; bev_pool_v2's output has a grad_fn); then
+     under kernels.plain_versions() (OCC_* tolerances; bev_pool_v2's output
+     has a grad_fn); then
      the main path, counted: 10 steps of scripts.train_occ.train_step
      (train-mode BatchNorm, occ_loss, S1b in the backward, optax's
      global-norm clipping, AdamW, the EMA), the loss falling, S1 and S1b
@@ -172,15 +173,14 @@ outputs/chip_smoke/):
      every S3 launch recorded; frame 2 again, counted: msda_fwd 8 and
      deform_im2col_fwd 2 launches, nothing else; shapes and finite values;
      both frames against the same frames with S3's plain versions on the
-     card (plain=True; MAP_REL_GAP, and equal top-k choices); each of the
+     card (kernels.plain_versions(); MAP_REL_GAP, and equal top-k choices); each of the
      10 recorded calls (TSA, SCA, six decoder layers; the two DCNs)
      against its plain version at the cuda tests' tolerances, two calls
      bitwise equal, timed (ms, device_ms, plain_ms) beside its bound
      (s3_work), and summed for a frame; per-frame ms (median of 5), peak
      memory and a profiled frame (frame_ms, frame_launches; the SCA's
      counters, overflow 0). The forward's convolutions run on the cuDNN
-     engines timed fastest at each shape: map.conv_tuned counts frame 1's
-     keys and 0 on the counted frame; then both frames in a fresh process
+     engines timed fastest at each shape; then both frames in a fresh process
      with cuDNN's heuristic choosing every engine (heuristic_mapping),
      against the tuned frames (MAP_REL_GAP, equal top-k choices), its
      per-frame ms beside, and each image-encoder convolution shape timed
@@ -726,6 +726,14 @@ def recording_calls(specs):
     finally:
         for module, name, real in reversed(patched):
             setattr(module, name, real)
+
+
+def plainly(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the plain versions (kernels.plain_versions())."""
+    from presight_tpu_torch import kernels
+
+    with kernels.plain_versions():
+        return fn(*args, **kwargs)
 
 
 def recording_render_chunk(field_hash, chunk: int = 5):
@@ -2772,12 +2780,12 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     if n_vox < 20000:
         problems.append(f"the synthetic prior crop gave {n_vox} voxels, not the cap")
 
-    def frame1(plain=False):
-        return model(imgs[0], *geo, **priors, k2s_sensor=k2s, plain=plain)
+    def frame1():
+        return model(imgs[0], *geo, **priors, k2s_sensor=k2s)
 
-    def frame2(stereo, plain=False):
+    def frame2(stereo):
         return model(imgs[1], *geo, **priors, prev_bev=prev_bev, prev2curr=p2c,
-                     prev_stereo_feat=stereo, k2s_sensor=k2s, plain=plain)
+                     prev_stereo_feat=stereo, k2s_sensor=k2s)
 
     # The main path, counted: frame 1 (no history), then frame 2 (frame 1's
     # stereo features, the ego motion, a seeded previous BEV).
@@ -2829,7 +2837,8 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
         problems.append(f"only {inside} frustum points land in the grid")
 
     # Frame 2 with the plain versions on the card.
-    occ_p, depth_p, _ = frame2(stereo1, plain=True)
+    with kernels.plain_versions():
+        occ_p, depth_p, _ = frame2(stereo1)
     torch.cuda.synchronize()
     err = (occ2 - occ_p).abs()
     bad = int((err > OCC_LOGIT_ATOL + OCC_LOGIT_RTOL * occ_p.abs()).sum())
@@ -2846,17 +2855,17 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
 
     # S1 on the recorded inputs (not counted: after the main path).
     chk.close("bev_pool_fwd", "frame 2 (rig)", PB.bev_pool_v2(*rec["bev_pool"]),
-              PB.bev_pool_v2(*rec["bev_pool"], plain=True), S1_ATOL, S1_RTOL)
+              plainly(PB.bev_pool_v2, *rec["bev_pool"]), S1_ATOL, S1_RTOL)
     ones = (torch.ones_like(depth_in), torch.ones_like(feat_in[..., :1]), coor_in)
     counts = PB.bev_pool_v2(*ones, lb, iv, (gx, gy, gz))
-    counts_plain = PB.bev_pool_v2(*ones, lb, iv, (gx, gy, gz), plain=True)
+    counts_plain = plainly(PB.bev_pool_v2, *ones, lb, iv, (gx, gy, gz))
     same = torch.equal(counts, counts_plain)
     print(f"  bev_pool_fwd points per voxel (the voxel set): {'equal' if same else 'DIFFER'} "
           f"({int((counts > 0).sum())} voxels, {int(counts.sum())} points)")
     if not same:
         problems.append("S1 puts points in other voxels than its plain version")
     s1 = lambda: PB.bev_pool_v2(*rec["bev_pool"])  # noqa: E731
-    chk.time("bev_pool_fwd", s1, lambda: PB.bev_pool_v2(*rec["bev_pool"], plain=True))
+    chk.time("bev_pool_fwd", s1, lambda: plainly(PB.bev_pool_v2, *rec["bev_pool"]))
     C = feat_in.shape[-1]
     rows = (depth_in[..., None] * feat_in[:, :, None]).reshape(-1, C)
     flat = torch.zeros((gx * gy * gz + 1, C), device=dev)
@@ -2880,8 +2889,8 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     # S2 on frame 2's recorded stereo features.
     prev_s, curr_s, grid_s, D, bias = rec["stereo"][:5]
     prob, cost, mask = PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, return_cost=True)
-    prob_p, cost_p, mask_p = PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, plain=True,
-                                                   return_cost=True)
+    prob_p, cost_p, mask_p = plainly(PV.stereo_cost_volume, prev_s, curr_s, grid_s, D, bias,
+                                     return_cost=True)
     flips = int((mask != mask_p).sum())
     print(f"  stereo_cost_volume_fwd bias mask: {int(mask.sum())} of {mask.numel()} samples "
           f"invalid, {flips} differ from the plain version's")
@@ -2893,7 +2902,7 @@ def occupancy_phase(chk: Checker, card: str, stage2_pickle):
     BN, Hs, Ws, Cs = curr_s.shape
     chk.time("stereo_cost_volume_fwd",
              lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias),
-             lambda: PV.stereo_cost_volume(prev_s, curr_s, grid_s, D, bias, plain=True))
+             lambda: plainly(PV.stereo_cost_volume, prev_s, curr_s, grid_s, D, bias))
     chk.library["stereo_cost_volume_fwd"] = None  # no single PyTorch call computes it
     # A reading without reloads: bin 0's position in every bin of a pixel
     # (the same corner rows throughout), S2's blending and reduction alone.
@@ -3074,7 +3083,7 @@ def occupancy_train_phase(chk: Checker, card: str):
           "step's single-frame training: S2 not run)")
 
     # (b) One step of the CLI's train_step with the kernels against the same
-    # step with the plain versions (plain=True), each from the same weights:
+    # step with the plain versions (kernels.plain_versions()), each from the same weights:
     # its loss and the clipped gradients it leaves in p.grad; bev_pool_v2's
     # output carries a grad_fn.
     grad_fns = []
@@ -3086,8 +3095,9 @@ def occupancy_train_phase(chk: Checker, card: str):
 
     def step_from_state0(plain):
         model.load_state_dict(state0)
-        loss, _ = train_occ.train_step(model, train_occ.make_optimizer(model, 1e-4, 1e-2),
-                                       ema_init(model), batch, plain=plain)
+        with kernels.plain_versions(plain):
+            loss, _ = train_occ.train_step(model, train_occ.make_optimizer(model, 1e-4, 1e-2),
+                                           ema_init(model), batch)
         grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
         return float(loss), grads
 
@@ -3263,7 +3273,7 @@ MAP_OFFSET_BIAS_STD = 1.0
 MSDA_RTOL, MSDA_ATOL_FRAC = 1e-5, 1e-5
 IM2COL_RTOL, IM2COL_ATOL_FRAC = 1e-5, 1e-6
 # Whole frames with the kernels against the same frames with S3's plain
-# versions (plain=True) on the card, as max |gap| over the plain output's
+# versions (kernels.plain_versions()) on the card, as max |gap| over the plain output's
 # largest value: the same convolutions and products, S3's sums in other
 # orders, carried through the encoder, the ConvGRU, the prior fusion and
 # six decoder layers. The port against the benchmark's reference on the
@@ -3387,11 +3397,11 @@ def map_setup(dev):
             for _ in range(2)]
     priors = [map_priors(cfg, rng, dev) for _ in range(2)]
 
-    def frame(i, carried=None, plain=False):
+    def frame(i, carried=None):
         history = {} if carried is None else dict(
             prev_bev=carried["bev"], prev2curr=p2c, prev_queries=carried["prop_queries"],
             prev_ref_pts=carried["prop_ref_pts"])
-        return model(imgs[i], l2i, **priors[i], **history, plain=plain)
+        return model(imgs[i], l2i, **priors[i], **history)
 
     return cfg, model, imgs, frame
 
@@ -3517,31 +3527,23 @@ def mapping_phase(chk: Checker, card: str):
 
     # Frame 1 from scratch, then frame 2 from its BEV and hand-off with every
     # S3 launch recorded; then the main path, counted: frame 2 again. cuDNN
-    # times each convolution's engines on its key's first call, so frames 1
-    # and 2 tune (map.conv_tuned: their new keys), and the counted frame 0.
-    tuned = [COUNTS["map.conv_tuned"]]
+    # times each convolution's engines on its shape's first call, so frames
+    # 1 and 2 tune, and the counted frame does not.
     t0 = time.perf_counter()
     out1 = frame(0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    tuned.append(COUNTS["map.conv_tuned"])
     with recording_s3(DF) as rec:
         out2 = frame(1, out1)
     torch.cuda.synchronize()
-    tuned.append(COUNTS["map.conv_tuned"])
     kernels.reset_launches()
     t0 = time.perf_counter()
     again = frame(1, out1)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    tuned = [b - a for a, b in zip(tuned, tuned[1:] + [COUNTS["map.conv_tuned"]])]
-    print(f"  frame 2 (counted): {time.perf_counter() - t0:.3f} s; launches "
+    print(f"  frame 1: {first_s:.2f} s (tuning included); frame 2 (counted): "
+          f"{time.perf_counter() - t0:.3f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    print(f"  map.conv_tuned: frame 1 {tuned[0]} ({first_s:.2f} s, tuning included), frame 2 "
-          f"{tuned[1]}, the counted frame {tuned[2]}")
-    if tuned[0] <= 0 or tuned[2] != 0:
-        problems.append(f"map.conv_tuned counted {tuned} on frames 1, 2 and 2 again: not a "
-                        "count a key, once")
     expect = {"msda_fwd": 2 * cfg.enc_layers + cfg.dec_layers, "deform_im2col_fwd": 2}
     for name, n in launches.items():
         if n != expect.get(name, 0):
@@ -3562,7 +3564,8 @@ def mapping_phase(chk: Checker, card: str):
           f"BEV frame 2 - frame 1 max {float((out2['bev'] - out1['bev']).abs().max()):.4e}")
 
     # Both frames with S3's plain versions on the card, from the same state.
-    plain = [frame(0, plain=True), frame(1, out1, plain=True)]
+    with kernels.plain_versions():
+        plain = [frame(0), frame(1, out1)]
     for label, got, want in (("frame 1", out1, plain[0]), ("frame 2", out2, plain[1])):
         gaps = {k: float((got[k].double() - want[k].double()).abs().max()
                          / want[k].double().abs().max()) for k in MAP_REL_GAP}

@@ -7,9 +7,9 @@ grouped K2 (``prop_density_sorted``); or one MLP shared by all experts
 (``shared_mlp``, the -tpu profile), evaluated without a sort. The -tpu
 profile's first round reads a per-expert dense grid of cell rows that
 ``refresh_prop_grid`` builds from the fine proposal field.
-``prop_grid_density`` is the wrapper of kernel K4 (csrc/prop_grid.cu): on
-CUDA tensors it launches the kernel, on CPU tensors it runs
-``prop_grid_density_plain``.
+``prop_grid_density`` is the wrapper of kernel K4 (csrc/prop_grid.cu): it
+launches the kernel, or runs ``prop_grid_density_plain`` where
+``kernels.use_plain`` says so (CPU tensors).
 """
 
 from __future__ import annotations
@@ -123,7 +123,7 @@ def prop_grid_density_plain(grid_cells: torch.Tensor, centroids: torch.Tensor,
 def prop_grid_density(grid_cells: torch.Tensor, centroids: torch.Tensor, aabbs: torch.Tensor,
                       positions: torch.Tensor, res: int) -> torch.Tensor:
     """Wrapper of K4: density of the cached grid at world positions (..., 3)."""
-    if positions.device.type == "cpu":
+    if kernels.use_plain(positions):
         return prop_grid_density_plain(grid_cells, centroids, aabbs, positions, res)
     shape = positions.shape[:-1]
     flat = positions.reshape(-1, 3)
@@ -137,9 +137,7 @@ def prop_grid_density(grid_cells: torch.Tensor, centroids: torch.Tensor, aabbs: 
             raise TypeError("prop_grid_density: expected float32 inputs")
     kernels.require_cuda("prop_grid_density", flat, centroids, aabbs, grid_cells)
     out = torch.empty((flat.shape[0],), dtype=torch.float32, device=flat.device)
-    code = kernels.lib().prop_grid_density_fwd(
-        flat.data_ptr(), centroids.data_ptr(), aabbs.data_ptr(), grid_cells.data_ptr(),
-        flat.shape[0], e, res, out.data_ptr(), kernels.stream())
-    kernels.check("prop_grid_density_fwd", code)
-    kernels.LAUNCHES["prop_grid_density_fwd"] += 1
+    kernels.launch("prop_grid_density_fwd", flat.data_ptr(), centroids.data_ptr(),
+                   aabbs.data_ptr(), grid_cells.data_ptr(), flat.shape[0], e, res,
+                   out.data_ptr())
     return out.reshape(shape)

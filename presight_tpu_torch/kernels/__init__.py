@@ -8,13 +8,19 @@ built at first use and loaded with ctypes; nothing here runs when the module
 is imported, so machines without nvcc (and the CPU tests) import it freely.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a nonzero code.
-``LAUNCHES`` counts the launches of each kernel, so a run can show that its
-main path went through them.
+``cudaGetLastError()``. :func:`launch` is the one way to call one: it passes
+the current stream, raises on a nonzero code and counts the launch in
+``LAUNCHES``, so a run can show that its main path went through them.
+
+:func:`use_plain` is the one rule that picks a hand kernel or its plain
+version: the plain version on a CPU tensor, and on any tensor (or for the
+host libraries, on none) inside :func:`plain_versions`, the scope a check
+on the card runs the plain versions under.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,12 +35,6 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
-
-KERNELS = ("hash_encode_fwd", "mlp_blocks_fwd", "volume_render_fwd",
-           "prop_grid_density_fwd", "hash_encode_bwd", "mlp_blocks_bwd",
-           "volume_render_bwd", "sorted_accum", "bev_pool_fwd", "stereo_cost_volume_fwd",
-           "bev_pool_bwd", "msda_fwd", "deform_im2col_fwd")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,12 +72,12 @@ _ARGTYPES = {
     # interval (x, y, z), X, Y, Z, scratch, out, stream
     "bev_pool_fwd": [_P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _F, _F, _F, _F, _F, _F,
                      _I, _I, _I, _P, _P, _P],
+    # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
+    "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     # depth, feat, coor, g, B, N, D, H*W, C, lb (x, y, z), interval (x, y, z),
     # X, Y, Z, d_depth, d_feat, stream
     "bev_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I64, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I,
                      _P, _P, _P],
-    # prev, curr, grid, BN, H, W, C, D, bias, out, cost, invalid, stream
-    "stereo_cost_volume_fwd": [_P, _P, _P, _I64, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     # value, loc, attn, levels (host array of 3 * L int64: h, w, first row),
     # B, Q, R, D, heads, L, T, out, stream
     "msda_fwd": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -93,7 +93,13 @@ _QUERIES = {
     "bev_pool_scratch_ints": ([_I64, _I64], _I64),
 }
 
+KERNELS = tuple(_ARGTYPES)
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
 _lib: Optional[ctypes.CDLL] = None
+# A module flag, not a thread-local one: autograd runs a CUDA backward on its
+# own thread.
+_plain = False
 
 
 def reset_launches() -> None:
@@ -178,13 +184,37 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA error {code}")
-
-
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on the current stream; raise on
+    its error code, else count it."""
+    code = getattr(lib(), name)(*args, stream())
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")
+    LAUNCHES[name] += 1
+
+
+def use_plain(t: Optional[torch.Tensor] = None) -> bool:
+    """The plain version runs, not the hand kernel: on a CPU tensor, and on
+    any tensor or none inside :func:`plain_versions`."""
+    return _plain or (t is not None and t.device.type == "cpu")
+
+
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """Inside the block every wrapper runs its plain version (with ``on``
+    false: its kernel on CUDA tensors), the setting before the block
+    restored after it, also when the block raises."""
+    global _plain
+    before = _plain
+    _plain = on
+    try:
+        yield
+    finally:
+        _plain = before
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

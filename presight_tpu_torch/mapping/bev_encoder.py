@@ -51,7 +51,7 @@ class DeformConv2d(nn.Module):
                                                  device=device))
         self.kernel_b = nn.Parameter(torch.empty(features, device=device))
 
-    def forward(self, x, plain: bool = False):
+    def forward(self, x):
         B = x.shape[0]
         kk = self.k * self.k
         off = self.offset_mask(x).permute(0, 2, 3, 1)  # (B, Ho, Wo, 3 k*k)
@@ -61,7 +61,7 @@ class DeformConv2d(nn.Module):
         mask = torch.sigmoid(off[..., 2 * kk:]).contiguous()
         x_nhwc = x.permute(0, 2, 3, 1).contiguous()
         with span("map.dcn_im2col"):
-            cols = deform_im2col(x_nhwc, offsets, mask, self.k, self.stride, plain)
+            cols = deform_im2col(x_nhwc, offsets, mask, self.k, self.stride)
         out = torch.addmm(self.kernel_b, cols, self.kernel_w)
         return out.reshape(B, Ho, Wo, -1).permute(0, 3, 1, 2).contiguous()
 
@@ -91,7 +91,7 @@ class TemporalSelfAttention(nn.Module):
         self.register_buffer("ref", torch.stack([gx.reshape(-1), gy.reshape(-1)], -1).to(device),
                              persistent=False)
 
-    def forward(self, query, plain: bool = False):
+    def forward(self, query):
         Q, D = query.shape
         H, W = self.bev_hw
         Hh, P = self.heads, self.points
@@ -101,7 +101,7 @@ class TemporalSelfAttention(nn.Module):
         value = self.value_proj(query)
         loc = self.ref[:, None, None, None, :] + offsets  # (Q, Hh, 2 queues, P, 2)
         with span("map.msda"):
-            out = msda(value[None], [(H, W, 0), (H, W, 0)], loc[None], attn[None], plain)[0]
+            out = msda(value[None], [(H, W, 0), (H, W, 0)], loc[None], attn[None])[0]
         return self.output_proj(out * 0.5)
 
 
@@ -133,8 +133,7 @@ class FusedDeformableCore(nn.Module):
     def capacity(self, Q: int) -> int:
         return min(Q, int(math.ceil(Q * self.capacity_frac)))
 
-    def forward(self, queries, ref_pix, cam_feats: Sequence[torch.Tensor], ref_valid,
-                plain: bool = False):
+    def forward(self, queries, ref_pix, cam_feats: Sequence[torch.Tensor], ref_valid):
         """queries (Q, D); ref_pix (N, A, Q, 2) level-0 feature pixels;
         cam_feats L maps (N, C, Hl, Wl), level l at 1/2^l of level 0;
         ref_valid (N, A, Q)."""
@@ -166,7 +165,7 @@ class FusedDeformableCore(nn.Module):
         w = attn[qsel] * valid[:, :, None, None, None, :] * slot_ok[:, :, None, None, None, None]
         with span("map.msda"):
             out = msda(value, levels, loc.reshape(N, K, Hh, L, Pa * A, 2),
-                       w.reshape(N, K, Hh, L, Pa * A), plain)  # (N, K, D)
+                       w.reshape(N, K, Hh, L, Pa * A))  # (N, K, D)
         rows = (qsel + Q * torch.arange(N, device=qsel.device)[:, None]).reshape(-1)
         total = out.new_zeros((N * Q, D)).index_copy_(0, rows, out.reshape(N * K, D))
         contrib = out.new_zeros(N * Q).index_copy_(0, rows, slot_ok.reshape(-1))
@@ -186,8 +185,8 @@ class SpatialCrossAttention(nn.Module):
                                                         num_levels, capacity_frac, device)
         self.output_proj = Dense(embed_dim, embed_dim, device)
 
-    def forward(self, queries, ref_pix, cam_feats, ref_valid, plain: bool = False):
-        out, hits = self.deformable_attention(queries, ref_pix, cam_feats, ref_valid, plain)
+    def forward(self, queries, ref_pix, cam_feats, ref_valid):
+        out, hits = self.deformable_attention(queries, ref_pix, cam_feats, ref_valid)
         return self.output_proj(out / torch.clamp_min(hits, 1.0)[:, None])
 
 
@@ -209,10 +208,10 @@ class EncoderLayer(nn.Module):
         self.Dense_1 = Dense(2 * D, D, device)
         self.LayerNorm_2 = LayerNorm(D, device)
 
-    def forward(self, bev_q, ref_pix, cam_feats, ref_valid, plain: bool = False):
-        bev_q = self.LayerNorm_0(bev_q + self.temporal_self_attn(bev_q, plain))
+    def forward(self, bev_q, ref_pix, cam_feats, ref_valid):
+        bev_q = self.LayerNorm_0(bev_q + self.temporal_self_attn(bev_q))
         bev_q = self.LayerNorm_1(bev_q + self.spatial_cross_attn(bev_q, ref_pix, cam_feats,
-                                                                 ref_valid, plain))
+                                                                 ref_valid))
         return self.LayerNorm_2(bev_q + self.Dense_1(F.relu(self.Dense_0(bev_q))))
 
 
@@ -297,13 +296,13 @@ class BEVEncoder(nn.Module):
                                                       num_levels, cross_num_points,
                                                       sca_capacity_frac, device))
 
-    def image_features(self, imgs, plain: bool = False) -> List[torch.Tensor]:
+    def image_features(self, imgs) -> List[torch.Tensor]:
         """(N, 3, H, W) -> ``num_levels`` maps (N, embed_dim, Hl, Wl)."""
         if self.backbone == "resnet":
             feats = self.resnet(imgs)
             if self.dcn:
-                feats[1] = self.dcn_s3(feats[1], plain)
-                feats[2] = self.dcn_s4(feats[2], plain)
+                feats[1] = self.dcn_s3(feats[1])
+                feats[2] = self.dcn_s4(feats[2])
             lat = [getattr(self, f"fpn_lat{i}")(f) for i, f in enumerate(feats)]
             for i in range(len(lat) - 1, 0, -1):
                 # jax.image.resize "nearest": source index floor((i + 0.5) * in / out)
@@ -317,11 +316,11 @@ class BEVEncoder(nn.Module):
                 levels.append(getattr(self, f"neck{i}")(x))
         return levels[:self.num_levels]
 
-    def forward(self, imgs, lidar2img, plain: bool = False):
+    def forward(self, imgs, lidar2img):
         """imgs (N, 3, H, W); lidar2img (N, 4, 4). The temporal
         self-attention runs over [query, query], as StreamMapNet runs it."""
         with span("map.image_encoder"):
-            levels = self.image_features(imgs, plain)
+            levels = self.image_features(imgs)
         with span("map.bev_encoder"):
             H, W = self.bev_hw
             D = self.embed_dim
@@ -331,7 +330,7 @@ class BEVEncoder(nn.Module):
             ref_pix, valid = project_bev_to_cameras(self.pillars, lidar2img, self.img_size,
                                                     levels[0].shape[2:])
             for i in range(self.num_layers):
-                h = getattr(self, f"layer{i}")(h, ref_pix, levels, valid, plain)
+                h = getattr(self, f"layer{i}")(h, ref_pix, levels, valid)
             return h.reshape(H, W, D).permute(2, 0, 1)
 
     def sca_cores(self) -> List[FusedDeformableCore]:

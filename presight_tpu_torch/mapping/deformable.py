@@ -12,9 +12,9 @@ kernels (csrc/deformable.cu) run them on CUDA tensors, forward only:
   f32 product turns into the convolution.
 
 :func:`msda` and :func:`deform_im2col` take the plain versions
-(:func:`msda_plain`, :func:`deform_im2col_plain`: four gathers) on CPU
-tensors or with ``plain=True``, and the kernels on any other device (which
-raise where they cannot launch). A tap is ``packed_rows_weights``' bilinear
+(:func:`msda_plain`, :func:`deform_im2col_plain`: four gathers) where
+``kernels.use_plain`` says so, and the kernels otherwise (which raise where
+they cannot launch). A tap is ``packed_rows_weights``' bilinear
 sample: floor of the pixel coordinate, corner weights (1 - wy)(1 - wx),
 (1 - wy) wx, wy (1 - wx), wy wx, a corner outside the map weighing 0. The
 kernels take no gradient: with autograd on and an input that requires one,
@@ -101,19 +101,16 @@ def msda_fwd(value: torch.Tensor, levels: Sequence[Level], loc: torch.Tensor,
             raise ValueError(f"msda_fwd: level ({H}, {W}) at row {start} outside {R} rows")
     out = torch.empty((B, Q, D), dtype=torch.float32, device=value.device)
     flat = [int(v) for level in levels for v in level]
-    code = kernels.lib().msda_fwd(value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-                                  (ctypes.c_int64 * len(flat))(*flat), B, Q, R, D, Hh,
-                                  L, T, out.data_ptr(), kernels.stream())
-    kernels.check("msda_fwd", code)
-    kernels.LAUNCHES["msda_fwd"] += 1
+    kernels.launch("msda_fwd", value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+                   (ctypes.c_int64 * len(flat))(*flat), B, Q, R, D, Hh, L, T, out.data_ptr())
     return out
 
 
-def msda(value: torch.Tensor, levels: Sequence[Level], loc: torch.Tensor, attn: torch.Tensor,
-         plain: bool = False) -> torch.Tensor:
-    """Multi-scale deformable attention: S3 on the card, the plain version
-    on CPU tensors or with ``plain``."""
-    if plain or value.device.type == "cpu":
+def msda(value: torch.Tensor, levels: Sequence[Level], loc: torch.Tensor,
+         attn: torch.Tensor) -> torch.Tensor:
+    """Multi-scale deformable attention: S3, or the plain version where
+    ``kernels.use_plain``."""
+    if kernels.use_plain(value):
         return msda_plain(value, levels, loc, attn)
     return msda_fwd(value.contiguous(), levels, loc.contiguous(), attn.contiguous())
 
@@ -162,19 +159,15 @@ def deform_im2col_fwd(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor
         raise ValueError(f"deform_im2col_fwd: x {tuple(x.shape)}, offsets "
                          f"{tuple(offsets.shape)}, mask {tuple(mask.shape)}, k {k} do not fit")
     cols = torch.empty((B * Ho * Wo, KK * C), dtype=torch.float32, device=x.device)
-    code = kernels.lib().deform_im2col_fwd(x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), B,
-                                           H, W, C, Ho, Wo, k, stride, cols.data_ptr(),
-                                           kernels.stream())
-    kernels.check("deform_im2col_fwd", code)
-    kernels.LAUNCHES["deform_im2col_fwd"] += 1
+    kernels.launch("deform_im2col_fwd", x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), B, H,
+                   W, C, Ho, Wo, k, stride, cols.data_ptr())
     return cols
 
 
 def deform_im2col(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor, k: int,
-                  stride: int = 1, plain: bool = False) -> torch.Tensor:
-    """DCNv2's columns: S3 on the card, the plain version on CPU tensors or
-    with ``plain``."""
-    if plain or x.device.type == "cpu":
+                  stride: int = 1) -> torch.Tensor:
+    """DCNv2's columns: S3, or the plain version where ``kernels.use_plain``."""
+    if kernels.use_plain(x):
         return deform_im2col_plain(x, offsets, mask, k, stride)
     return deform_im2col_fwd(x.contiguous(), offsets.contiguous(), mask.contiguous(), k, stride)
 

@@ -73,7 +73,7 @@ class DecoderDeformableAttention(nn.Module):
         self.value_proj = Dense(D, D, device)
         self.output_proj = Dense(D, D, device)
 
-    def forward(self, queries, ref_pts, bev_rows, bev_hw: Tuple[int, int], plain: bool = False):
+    def forward(self, queries, ref_pts, bev_rows, bev_hw: Tuple[int, int]):
         """queries (Q, D); ref_pts (Q, P, 2) normalised (x, y); bev_rows
         (H * W, D). Returns (Q, D)."""
         Q, D = queries.shape
@@ -86,7 +86,7 @@ class DecoderDeformableAttention(nn.Module):
         py = ref_pts[:, None, :, 1] * H + offsets[..., 1]
         loc = torch.stack([px, py], -1).reshape(1, Q, Hh, 1, P, 2)
         with span("map.msda"):
-            out = msda(value[None], [(H, W, 0)], loc, attn.reshape(1, Q, Hh, 1, P), plain)
+            out = msda(value[None], [(H, W, 0)], loc, attn.reshape(1, Q, Hh, 1, P))
         return self.output_proj(out[0])
 
 
@@ -105,11 +105,10 @@ class DecoderLayer(nn.Module):
         self.Dense_1 = Dense(2 * D, D, device)
         self.LayerNorm_2 = LayerNorm(D, device)
 
-    def forward(self, q, bev_rows, bev_hw, ref_pts, query_pos, plain: bool = False):
+    def forward(self, q, bev_rows, bev_hw, ref_pts, query_pos):
         qp = q + query_pos
         q = self.LayerNorm_0(q + self.MultiHeadDotProductAttention_0(qp, qp, q))
-        q = self.LayerNorm_1(q + self.cross_attn(q + query_pos, ref_pts, bev_rows, bev_hw,
-                                                 plain))
+        q = self.LayerNorm_1(q + self.cross_attn(q + query_pos, ref_pts, bev_rows, bev_hw))
         return self.LayerNorm_2(q + self.Dense_1(F.relu(self.Dense_0(q))))
 
 
@@ -164,7 +163,7 @@ class MapDetectorHead(nn.Module):
 
     def forward(self, bev, prev_queries: Optional[torch.Tensor] = None,
                 prev_ref_pts: Optional[torch.Tensor] = None,
-                prev2curr: Optional[torch.Tensor] = None, plain: bool = False) -> Dict:
+                prev2curr: Optional[torch.Tensor] = None) -> Dict:
         """bev (C, H, W); prev_queries (k, D), prev_ref_pts (k, P, 2)
         normalised and prev2curr (4, 4) for streaming (all None on a
         stream's first frame)."""
@@ -194,7 +193,7 @@ class MapDetectorHead(nn.Module):
                 keep = torch.topk(self.cls_head(q, lid).max(-1).values, Q - k).indices
                 q = torch.cat([prop_q, q[keep]])
                 ref = torch.cat([prop_ref, ref[keep]])
-            q = getattr(self, f"dec{lid}")(q, bev_rows, (H, W), ref, self.query_pos, plain)
+            q = getattr(self, f"dec{lid}")(q, bev_rows, (H, W), ref, self.query_pos)
             ref = torch.sigmoid(self.reg_branch(q, lid).reshape(Q, P, 2))
 
         rw, rh = self.roi_size

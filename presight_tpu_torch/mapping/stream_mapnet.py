@@ -18,11 +18,6 @@ counts after the hand-off, per encoder layer, ``map.sca_pairs`` (valid
 S3 computes) and ``map.sca_overflow`` (valid queries dropped past the
 capacity), reading the per-camera counts from the card once a frame, when
 its work is queued; outside one it reads nothing from the card.
-``map.conv_tuned`` always counts: the model's convolution calls under
-cuDNN's timing whose key (input shape, weight shape, stride, padding,
-dtype) the process's mapping models had not met, each one cuDNN
-measurement on the card (a stream's first two frames; 0 a frame after
-them). A set lookup a convolution; it reads nothing from the card.
 """
 
 from __future__ import annotations
@@ -33,36 +28,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..models.layers import Conv
 from ..models.prior_fusion import PriorFusion2D
 from ..utils.precision import ieee_convolutions, ieee_matmul, tuned_convolutions
 from ..utils.profiler import count, profiling, span
 from .bev_encoder import BEVEncoder
 from .conv_gru import ConvGRU, warp_bev
 from .map_head import MapDetectorHead, select_topk_for_propagation
-
-
-# cuDNN's keys of the convolutions the process's mapping models have met:
-# cuDNN keeps one plan a key for the process, so it times a key only the
-# first time, and only if that time is under its timing.
-_CONV_KEYS: set = set()
-
-
-def _count_tuned(conv: Conv, args: tuple) -> None:
-    """A forward pre-hook of each of the model's convolutions: counts
-    ``map.conv_tuned`` when cuDNN will time this call's engines. The key is
-    what cuDNN is handed: input shape (after ``Conv``'s own padding where
-    low and high differ), weight shape, stride, padding, dtype."""
-    x = args[0]
-    shape, pads = list(x.shape), conv.pads(x.shape[2:])
-    if any(lo != hi for lo, hi in pads):
-        shape[2:] = [n + lo + hi for n, (lo, hi) in zip(shape[2:], pads)]
-        pads = [(0, 0)] * len(pads)
-    key = (tuple(shape), tuple(conv.weight.shape), conv.stride, tuple(pads), x.dtype)
-    if key not in _CONV_KEYS:
-        _CONV_KEYS.add(key)
-        if torch.backends.cudnn.benchmark:
-            count("map.conv_tuned", 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,25 +91,21 @@ class StreamMapNet(nn.Module):
             cfg.bev_hw, num_queries=cfg.num_queries, num_classes=cfg.num_classes,
             num_points=cfg.num_points, embed_dim=D, num_layers=cfg.dec_layers,
             num_heads=cfg.num_heads, roi_size=cfg.roi_size, device=device)
-        for conv in self.modules():
-            if isinstance(conv, Conv):
-                conv.register_forward_pre_hook(_count_tuned)
 
     def forward(self, imgs, lidar2img, prev_bev=None, prev2curr=None, prev_queries=None,
-                prior_feats=None, prior_coords=None, prior_valid=None, prev_ref_pts=None,
-                plain: bool = False) -> Dict[str, torch.Tensor]:
+                prior_feats=None, prior_coords=None, prior_valid=None,
+                prev_ref_pts=None) -> Dict[str, torch.Tensor]:
         """imgs (N_cam, 3, H, W); lidar2img (N_cam, 4, 4); prev_bev (C, Hb,
         Wb) and prev2curr (3, 3) the streaming memory and the 2D ego motion;
         prev_queries (k, D) and prev_ref_pts (k, P, 2) the last frame's
         hand-off; prior_feats (V, 68), prior_coords (V, 3), prior_valid (V,)
-        the voxelized priors (None: no prior fusion); plain: S3's plain
-        versions on the card (the kernels' check). Returns scores, lines,
+        the voxelized priors (None: no prior fusion). Returns scores, lines,
         queries, ref_pts (keep when streaming: the current queries the
         decoder kept), bev, and the next frame's hand-off prop_queries and
         prop_ref_pts (rows prop_index of queries and ref_pts)."""
         cfg = self.cfg
         with span("map.forward"), ieee_convolutions(), tuned_convolutions(), ieee_matmul():
-            bev = self.backbone(imgs, lidar2img, plain)
+            bev = self.backbone(imgs, lidar2img)
             if prev_bev is not None and cfg.streaming_bev:
                 with span("map.stream"):
                     bev = self.stream_fusion(warp_bev(prev_bev, prev2curr, cfg.roi_size), bev)
@@ -153,7 +120,7 @@ class StreamMapNet(nn.Module):
                 pose[:2, :2] = prev2curr[:2, :2]
                 pose[:2, 3] = prev2curr[:2, 2]
             with span("map.head"):
-                out = self.head(bev, prev_queries, prev_ref_pts, pose, plain)
+                out = self.head(bev, prev_queries, prev_ref_pts, pose)
             out["bev"] = bev
             with span("map.propagate"):
                 out["prop_index"], out["prop_queries"], out["prop_ref_pts"] = (

@@ -6,10 +6,10 @@ native/jpeg.py).
 keyed on a hash of its source, the way ``kernels.build()`` keys the CUDA
 library; nothing is written into the source tree and nothing runs at import.
 A build failure raises: the numpy ``StreamingVoxelAccumulator`` of
-prior/voxelize.py is the plain version and is chosen only by an explicit
-argument, never as a silent fallback, and so is the numpy
-``points_to_voxel_plain`` of the first-come voxelizer; the JPEG codec has
-none.
+prior/voxelize.py is the plain version and runs only where
+``kernels.use_plain()`` (inside ``kernels.plain_versions()``), never as a
+silent fallback, and so does the numpy ``points_to_voxel_plain`` of the
+first-come voxelizer; the JPEG codec has none.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from .. import kernels
 
 SOURCE = Path(__file__).resolve().parent / "voxelize.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -125,18 +127,18 @@ class VoxelAccumulator:
 
 
 def points_to_voxel(points: np.ndarray, voxel_size, coors_range, max_points: int = 16,
-                    max_voxels: int = 100_000, plain: bool = False
-                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                    max_voxels: int = 100_000) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """First-come voxelization (the reference's numba _points_to_voxel_kernel,
     prior_points.py:232-298): voxels appear in point order up to
     ``max_voxels``, each keeps its first ``max_points`` points. Returns
     (voxels (V, max_points, ndim), coors (V, 3) in (z, y, x), counts (V,)).
-    ``plain=True`` runs the numpy version instead of the C++ one."""
+    The numpy version runs instead of the C++ one where
+    ``kernels.use_plain()``."""
     points = np.ascontiguousarray(points, np.float32)
     n, ndim = points.shape
     vs = np.ascontiguousarray(voxel_size, np.float32)
     cr = np.ascontiguousarray(coors_range, np.float32)
-    if plain:
+    if kernels.use_plain():
         return points_to_voxel_plain(points, vs, cr, max_points, max_voxels)
     voxels = np.zeros((max_voxels, max_points, ndim), np.float32)
     coors = np.zeros((max_voxels, 3), np.int32)

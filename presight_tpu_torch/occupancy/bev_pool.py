@@ -8,12 +8,12 @@ XLA stand-in for the reference's bev_pool_v2 CUDA kernel,
 occupancy/mmdet3d/ops/bev_pool_v2/src/bev_pool_cuda.cu). Here it is kernel
 S1 (csrc/bev_pool.cu: a counting sort by voxel in its own passes, then the
 reference's interval sum in point order) on CUDA tensors, and
-:func:`bev_pool_v2_plain` (index_add_ of the materialised rows) on CPU
-tensors or with ``plain=True``.
+:func:`bev_pool_v2_plain` (index_add_ of the materialised rows) where
+``kernels.use_plain`` says so (CPU tensors).
 
 Its gradient (the transpose of the segment sum is a gather) is kernel S1b
-(csrc/bev_pool.cu ``bev_pool_bwd``) on CUDA tensors and
-:func:`bev_pool_v2_bwd_plain` otherwise, through one autograd Function:
+(csrc/bev_pool.cu ``bev_pool_bwd``), or :func:`bev_pool_v2_bwd_plain`
+where the forward ran its plain version, through one autograd Function:
 d depth[p] = sum_c feat[pix(p), c] * g[vox(p), c] and d feat[pix, c] =
 sum_d depth[pix, d] * g[vox(pix, d), c], 0 for a point outside the grid.
 ``coor`` gets no gradient (in JAX the floor makes it zero).
@@ -108,15 +108,12 @@ def bev_pool_fwd(depth, feat, coor, grid_lower_bound, grid_interval, grid_size) 
     gx, gy, gz = (int(g) for g in grid_size)
     n = depth.numel()
     lb, iv = _grid_args(grid_lower_bound, grid_interval)
-    lib = kernels.lib()
-    scratch = torch.empty(lib.bev_pool_scratch_ints(n, cells), dtype=torch.int32,
+    scratch = torch.empty(kernels.lib().bev_pool_scratch_ints(n, cells), dtype=torch.int32,
                           device=depth.device)
     out = torch.empty((B, C, gz, gy, gx), dtype=torch.float32, device=depth.device)
-    code = lib.bev_pool_fwd(depth.data_ptr(), feat.data_ptr(), coor.data_ptr(), n, N * D * H * W,
-                            D * H * W, H * W, C, B, *lb, *iv, gx, gy, gz, scratch.data_ptr(),
-                            out.data_ptr(), kernels.stream())
-    kernels.check("bev_pool_fwd", code)
-    kernels.LAUNCHES["bev_pool_fwd"] += 1
+    kernels.launch("bev_pool_fwd", depth.data_ptr(), feat.data_ptr(), coor.data_ptr(), n,
+                   N * D * H * W, D * H * W, H * W, C, B, *lb, *iv, gx, gy, gz,
+                   scratch.data_ptr(), out.data_ptr())
     return out
 
 
@@ -136,23 +133,21 @@ def bev_pool_bwd(depth, feat, coor, g, grid_lower_bound, grid_interval, grid_siz
     lb, iv = _grid_args(grid_lower_bound, grid_interval)
     d_depth = torch.empty_like(depth)
     d_feat = torch.empty_like(feat)
-    code = kernels.lib().bev_pool_bwd(
-        depth.data_ptr(), feat.data_ptr(), coor.data_ptr(), g.data_ptr(), B, N, D, H * W, C,
-        *lb, *iv, gx, gy, gz, d_depth.data_ptr(), d_feat.data_ptr(), kernels.stream())
-    kernels.check("bev_pool_bwd", code)
-    kernels.LAUNCHES["bev_pool_bwd"] += 1
+    kernels.launch("bev_pool_bwd", depth.data_ptr(), feat.data_ptr(), coor.data_ptr(),
+                   g.data_ptr(), B, N, D, H * W, C, *lb, *iv, gx, gy, gz, d_depth.data_ptr(),
+                   d_feat.data_ptr())
     return d_depth, d_feat
 
 
 class _BevPool(torch.autograd.Function):
-    """S1 forward, S1b backward (their plain versions on the CPU or with
-    ``plain``)."""
+    """S1 forward, S1b backward (their plain versions where
+    ``kernels.use_plain`` was true at the forward)."""
 
     @staticmethod
-    def forward(ctx, depth, feat, coor, lb, iv, grid_size, plain):
+    def forward(ctx, depth, feat, coor, lb, iv, grid_size):
         ctx.save_for_backward(depth, feat, coor)
-        ctx.grid, ctx.plain = (lb, iv, grid_size), plain
-        if plain or depth.device.type == "cpu":
+        ctx.grid, ctx.plain = (lb, iv, grid_size), kernels.use_plain(depth)
+        if ctx.plain:
             return bev_pool_v2_plain(depth, feat, coor, lb, iv, grid_size)
         return bev_pool_fwd(depth, feat, coor, lb, iv, grid_size)
 
@@ -161,26 +156,25 @@ class _BevPool(torch.autograd.Function):
         depth, feat, coor = ctx.saved_tensors
         # A slice of torch.cat's backward (the temporal branch) is strided.
         g = g.contiguous()
-        if ctx.plain or g.device.type == "cpu":
+        if ctx.plain:
             d_depth, d_feat = bev_pool_v2_bwd_plain(depth, feat, coor, g, *ctx.grid)
         else:
             d_depth, d_feat = bev_pool_bwd(depth, feat, coor, g, *ctx.grid)
         return (d_depth if ctx.needs_input_grad[0] else None,
-                d_feat if ctx.needs_input_grad[1] else None, None, None, None, None, None)
+                d_feat if ctx.needs_input_grad[1] else None, None, None, None, None)
 
 
 def bev_pool_v2(depth: torch.Tensor, feat: torch.Tensor, coor: torch.Tensor,
                 grid_lower_bound: Sequence[float], grid_interval: Sequence[float],
-                grid_size: Tuple[int, int, int], plain: bool = False) -> torch.Tensor:
+                grid_size: Tuple[int, int, int]) -> torch.Tensor:
     """Pool depth-weighted image features into the BEV voxel grid.
 
     depth (B, N, D, H, W) (softmaxed), feat (B, N, H, W, C), coor
     (B, N, D, H, W, 3) in ego coordinates; grid_size (X, Y, Z). Returns
     (B, C, Z, Y, X) f32, differentiable in depth and feat. Wrapper of S1 and
-    S1b: the CUDA kernels on CUDA tensors, the plain versions on CPU
-    tensors or with ``plain=True``.
+    S1b: the CUDA kernels, or the plain versions where ``kernels.use_plain``.
     """
-    return _BevPool.apply(depth, feat, coor, grid_lower_bound, grid_interval, grid_size, plain)
+    return _BevPool.apply(depth, feat, coor, grid_lower_bound, grid_interval, grid_size)
 
 
 def bev_pool_v2_reference(depth, feat, coor, grid_lower_bound, grid_interval,

@@ -156,8 +156,7 @@ class BEVDetOcc(nn.Module):
     ``prev_stereo_feat`` (B, N, Hs, Ws, Cs) with ``k2s_sensor``
     (B, N, 4, 4). It returns (occ logits (B, X, Y, Z, classes), depth
     (B*N, D, Hf, Wf)) and, with stereo, the current stereo features
-    (B, N, Hs, Ws, Cs) for the next frame. ``plain=True`` runs S1 and S2's
-    plain versions on any device.
+    (B, N, Hs, Ws, Cs) for the next frame.
 
     Its parameters live on ``device``, the card unless the caller names
     another. The prior fusion exists when ``with_prior_fusion`` (by default: when
@@ -215,16 +214,14 @@ class BEVDetOcc(nn.Module):
 
     def forward(self, imgs, sensor2ego, cam2imgs, post_rots, post_trans, bda,
                 prior_feats=None, prior_coords=None, prior_valid=None,
-                prev_bev=None, prev2curr=None, prev_stereo_feat=None, k2s_sensor=None,
-                plain: bool = False):
+                prev_bev=None, prev2curr=None, prev_stereo_feat=None, k2s_sensor=None):
         with span("occ.forward"), ieee_convolutions():
             return self._forward(imgs, sensor2ego, cam2imgs, post_rots, post_trans, bda,
                                  prior_feats, prior_coords, prior_valid, prev_bev, prev2curr,
-                                 prev_stereo_feat, k2s_sensor, plain)
+                                 prev_stereo_feat, k2s_sensor)
 
     def _forward(self, imgs, sensor2ego, cam2imgs, post_rots, post_trans, bda, prior_feats,
-                 prior_coords, prior_valid, prev_bev, prev2curr, prev_stereo_feat, k2s_sensor,
-                 plain):
+                 prior_coords, prior_valid, prev_bev, prev2curr, prev_stereo_feat, k2s_sensor):
         cfg = self.config
         B, N, _, H, W = imgs.shape
         with span("occ.image_encoder"):
@@ -248,7 +245,7 @@ class BEVDetOcc(nn.Module):
                                     k2s_sensor=k2s_sensor)
         with span("occ.view_transformer"):
             bev, depth = self.LSSViewTransformer_0(x, sensor2ego, cam2imgs, post_rots,
-                                                   post_trans, bda, stereo_metas, plain=plain)
+                                                   post_trans, bda, stereo_metas)
         with span("occ.bev_encoder"):
             if cfg.temporal:
                 # BEVDet4D: warp each z slice of the previous volume into the

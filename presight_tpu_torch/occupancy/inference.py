@@ -3,7 +3,7 @@ presight_tpu/occupancy/inference.py: the batch in ``chunk_size``-sample
 slices, one forward each, outputs concatenated on axis 0 (every output of
 BEVDetOcc is batch-major). Each forward runs in the chunk's activation
 regime. The multi-device ``sharded_apply`` comes with the multi-GPU port
-(ROADMAP Queue 1 item 4).
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

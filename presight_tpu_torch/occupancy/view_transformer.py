@@ -12,7 +12,7 @@ depth hypotheses, softmaxed over D, feeds the depth head.
 
 :func:`stereo_cost_volume` is kernel S2 (csrc/stereo_cost.cu) on CUDA
 tensors and :func:`stereo_cost_volume_plain` (``F.grid_sample`` per depth
-bin) on CPU tensors or with ``plain=True``; the splat is S1
+bin) where ``kernels.use_plain`` says so; the splat is S1
 (bev_pool.py). The public functions keep the JAX package's layouts
 (channels last); the modules run NCHW.
 """
@@ -128,16 +128,14 @@ def stereo_cost_volume_plain(prev_feat, curr_feat, grid, depth_bins: int, bias: 
 
 
 def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor, grid: torch.Tensor,
-                       depth_bins: int, bias: float = 5.0, plain: bool = False,
-                       return_cost: bool = False):
+                       depth_bins: int, bias: float = 5.0, return_cost: bool = False):
     """Channel-L1 matching cost over depth hypotheses, softmaxed over D
     (view_transformer.py:168): prev_feat, curr_feat (BN, Hs, Ws, Cs), grid
     (BN, D*Hs*Ws, 2) from gen_stereo_grid. Returns (BN, Hs, Ws, D) (and,
     with ``return_cost``, the costs and the bias mask). Wrapper of S2: the
-    CUDA kernel on CUDA tensors, the plain version on CPU tensors or with
-    ``plain=True``. The warped volume (BN, D, Hs, Ws, Cs) is never
-    materialised."""
-    if plain or curr_feat.device.type == "cpu":
+    CUDA kernel, or the plain version where ``kernels.use_plain``. The
+    warped volume (BN, D, Hs, Ws, Cs) is never materialised."""
+    if kernels.use_plain(curr_feat):
         return stereo_cost_volume_plain(prev_feat, curr_feat, grid, depth_bins, bias, return_cost)
     BN, Hs, Ws, Cs = curr_feat.shape
     if prev_feat.shape != curr_feat.shape or grid.shape != (BN, depth_bins * Hs * Ws, 2):
@@ -153,12 +151,9 @@ def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor, grid: t
     if return_cost:
         cost = torch.empty_like(out)
         mask = torch.empty((BN, Hs, Ws, depth_bins), dtype=torch.uint8, device=dev)
-    code = kernels.lib().stereo_cost_volume_fwd(
-        prev_feat.data_ptr(), curr_feat.data_ptr(), grid.data_ptr(), BN, Hs, Ws, Cs,
-        depth_bins, float(bias), out.data_ptr(), kernels.ptr(cost), kernels.ptr(mask),
-        kernels.stream())
-    kernels.check("stereo_cost_volume_fwd", code)
-    kernels.LAUNCHES["stereo_cost_volume_fwd"] += 1
+    kernels.launch("stereo_cost_volume_fwd", prev_feat.data_ptr(), curr_feat.data_ptr(),
+                   grid.data_ptr(), BN, Hs, Ws, Cs, depth_bins, float(bias), out.data_ptr(),
+                   kernels.ptr(cost), kernels.ptr(mask))
     if return_cost:
         return out, cost, mask.bool()
     return out
@@ -276,12 +271,11 @@ class LSSViewTransformer(nn.Module):
                                                downsample)).to(device)
 
     def forward(self, x, sensor2ego, cam2imgs, post_rots, post_trans, bda,
-                stereo_metas: Optional[Dict] = None, plain: bool = False):
+                stereo_metas: Optional[Dict] = None):
         """x (B, N, Cin, Hf, Wf). stereo_metas (with ``stereo``): 'curr_feat'
         and 'prev_feat' (B, N, Hs, Ws, Cs) at cv_downsample (prev_feat None
         on the first frame: a zero cost volume, view_transformer.py:652-659)
-        and 'k2s_sensor' (B, N, 4, 4). ``plain`` runs S1 and S2's plain
-        versions. Returns (bev (B, C, Z, Y, X), or (B, C*Z, Y, X) with
+        and 'k2s_sensor' (B, N, 4, 4). Returns (bev (B, C, Z, Y, X), or (B, C*Z, Y, X) with
         collapse_z, and depth (B*N, D, Hf, Wf))."""
         B, N, Cin, Hf, Wf = x.shape
         D = self.depth_bins
@@ -302,7 +296,7 @@ class LSSViewTransformer(nn.Module):
                 prev = stereo_metas["prev_feat"].reshape(B * N, hs, ws, -1)
                 with torch.no_grad():  # the matching prior carries no gradient (:645-664)
                     cv = stereo_cost_volume(prev.contiguous(), curr.contiguous(),
-                                            grid.contiguous(), D, self.cv_bias, plain=plain)
+                                            grid.contiguous(), D, self.cv_bias)
                 cost_volume = cv.permute(0, 3, 1, 2)
         feat = self.DepthNet_0(x.reshape(B * N, Cin, Hf, Wf), mlp_input.reshape(B * N, -1),
                                cost_volume)
@@ -313,7 +307,7 @@ class LSSViewTransformer(nn.Module):
         lb = [self.grid_config[k][0] for k in ("x", "y", "z")]
         iv = [self.grid_config[k][2] for k in ("x", "y", "z")]
         bev = bev_pool_v2(depth.reshape(B, N, D, Hf, Wf).contiguous(), tran_feat.contiguous(),
-                          coor.contiguous(), lb, iv, self.grid_size, plain=plain)
+                          coor.contiguous(), lb, iv, self.grid_size)
         if self.collapse_z:
             # cat(unbind(dim=2), 1): z-major channel blocks (view_transformer.py:225-227)
             b, c, z, yy, xx = bev.shape

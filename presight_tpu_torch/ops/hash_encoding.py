@@ -7,8 +7,9 @@ forward is kernel K1 (csrc/hash_encode.cu); its backward is kernel K1b
 the keys, and kernel K5 (csrc/sorted_accum.cu), which reads the rows
 through the sort's permutation and adds each run of equal keys to the
 tables' gradient -- the sort-then-reduce design of the JAX package's
-``_gather_rows_sorted_grad``. Each kernel's wrapper launches it on CUDA
-tensors and runs its plain PyTorch version on CPU tensors. The plain
+``_gather_rows_sorted_grad``. Each kernel's wrapper runs its plain
+PyTorch version where ``kernels.use_plain`` says so (CPU tensors), else
+launches it; the Function's backward follows its forward. The plain
 versions hash in int64 with each prime product masked to 32 bits, which
 equals the reference's uint32 wraparound modulo the table size.
 
@@ -151,9 +152,9 @@ def hash_encode_plain(table: Table, positions: torch.Tensor, config: HashEncodin
 
 def hash_encode_fwd(table: Table, positions: torch.Tensor, config: HashEncodingConfig,
                     expert_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Wrapper of K1: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    if positions.device.type == "cpu":
+    """Wrapper of K1: the CUDA kernel, or the plain version where
+    ``kernels.use_plain``."""
+    if kernels.use_plain(positions):
         return hash_encode_plain(table, positions, config, expert_ids)
     L, T, F = config.num_levels, config.table_size, config.features_per_level
     storage = _STORAGES[config.storage]
@@ -188,12 +189,9 @@ def hash_encode_fwd(table: Table, positions: torch.Tensor, config: HashEncodingC
     kernels.require_cuda("hash_encode", pos, *tables, *extra)
     out = torch.empty((n, L * F), dtype=torch.float32, device=pos.device)
     scales = (ctypes.c_float * L)(*config.scalings().tolist())
-    code = kernels.lib().hash_encode_fwd(
-        pos.data_ptr(), kernels.ptr(eids), kernels.host_ptrs(level_ptrs), scales,
-        n, L, F, config.log2_hashmap_size, storage, expert_stride, out.data_ptr(),
-        kernels.stream())
-    kernels.check("hash_encode_fwd", code)
-    kernels.LAUNCHES["hash_encode_fwd"] += 1
+    kernels.launch("hash_encode_fwd", pos.data_ptr(), kernels.ptr(eids),
+                   kernels.host_ptrs(level_ptrs), scales, n, L, F, config.log2_hashmap_size,
+                   storage, expert_stride, out.data_ptr())
     return out.reshape(*shape, L * F)
 
 
@@ -242,7 +240,7 @@ def hash_encode_bwd_plain(positions: torch.Tensor, config: HashEncodingConfig,
 def hash_encode_bwd(positions: torch.Tensor, config: HashEncodingConfig,
                     expert_ids: Optional[torch.Tensor], grad: torch.Tensor):
     """Wrapper of K1b (see hash_encode_bwd_plain for the contract)."""
-    if positions.device.type == "cpu":
+    if kernels.use_plain(positions):
         return hash_encode_bwd_plain(positions, config, expert_ids, grad)
     L, F = config.num_levels, config.features_per_level
     n = positions.shape[0]
@@ -262,12 +260,9 @@ def hash_encode_bwd(positions: torch.Tensor, config: HashEncodingConfig,
     rows = torch.empty((n_keys, F if corner else 8 * F), dtype=torch.float32,
                        device=positions.device)
     scales = (ctypes.c_float * L)(*config.scalings().tolist())
-    code = kernels.lib().hash_encode_bwd(
-        positions.data_ptr(), kernels.ptr(expert_ids), grad.data_ptr(), scales, n, L, F,
-        config.log2_hashmap_size, _STORAGES[config.storage], keys.data_ptr(), rows.data_ptr(),
-        kernels.stream())
-    kernels.check("hash_encode_bwd", code)
-    kernels.LAUNCHES["hash_encode_bwd"] += 1
+    kernels.launch("hash_encode_bwd", positions.data_ptr(), kernels.ptr(expert_ids),
+                   grad.data_ptr(), scales, n, L, F, config.log2_hashmap_size,
+                   _STORAGES[config.storage], keys.data_ptr(), rows.data_ptr())
     return keys, rows
 
 
@@ -302,7 +297,7 @@ def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: Table,
     tensors of which part p holds keys [p T, (p + 1) T) (the 'shared'
     storage's level tables). The output is accumulated into and never
     zeroed."""
-    if rows.device.type == "cpu":
+    if kernels.use_plain(rows):
         return sorted_accum_plain(keys, rows, out, order)
     parts = _out_parts(out)
     if keys.dtype != torch.int32 or rows.dtype != torch.float32:
@@ -321,12 +316,9 @@ def sorted_accum(keys: torch.Tensor, rows: torch.Tensor, out: Table,
     num_tiles = -(-n // _SORTED_ACCUM_TILE)
     scratch = torch.empty((2 * num_tiles, C), dtype=torch.float32, device=rows.device)
     flags = torch.empty((num_tiles,), dtype=torch.uint8, device=rows.device)
-    code = kernels.lib().sorted_accum(
-        keys.data_ptr(), order.data_ptr(), rows.data_ptr(), n, C,
-        kernels.host_ptrs([t.data_ptr() for t in parts]), len(parts), parts[0].shape[0], vec,
-        scratch.data_ptr(), flags.data_ptr(), kernels.stream())
-    kernels.check("sorted_accum", code)
-    kernels.LAUNCHES["sorted_accum"] += 1
+    kernels.launch("sorted_accum", keys.data_ptr(), order.data_ptr(), rows.data_ptr(), n, C,
+                   kernels.host_ptrs([t.data_ptr() for t in parts]), len(parts),
+                   parts[0].shape[0], vec, scratch.data_ptr(), flags.data_ptr())
 
 
 def table_grad(positions: torch.Tensor, config: HashEncodingConfig,
@@ -351,6 +343,7 @@ class _HashEncode(torch.autograd.Function):
     def forward(ctx, positions, expert_ids, config, tables, token):
         ctx.config = config
         ctx.tables = tables
+        ctx.plain = kernels.use_plain(positions)
         ctx.save_for_backward(positions, expert_ids)
         return hash_encode_fwd(tables if config.storage == "shared" else tables[0], positions,
                                config, expert_ids)
@@ -363,8 +356,9 @@ class _HashEncode(torch.autograd.Function):
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
             grads.append(t.grad)
-        table_grad(positions, ctx.config, expert_ids, grad.contiguous(),
-                   grads if ctx.config.storage == "shared" else grads[0])
+        with kernels.plain_versions(ctx.plain):
+            table_grad(positions, ctx.config, expert_ids, grad.contiguous(),
+                       grads if ctx.config.storage == "shared" else grads[0])
         return None, None, None, None, None
 
 

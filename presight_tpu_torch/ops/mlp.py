@@ -6,8 +6,9 @@ or (E, out). ``apply_mlp_blocks`` and ``apply_mlp`` run a
 and whose backward is kernel K2b (csrc/mlp_blocks_bwd.cu): dX, and dW, db
 per expert, with the ReLU masks and the sigmoid epilogue differentiated
 inside. Both run every product on the tensor cores in 3xTF32 (f32
-accuracy). On CUDA tensors the kernels launch, on CPU tensors the plain
-PyTorch versions run (the backward's formula written out, not autograd).
+accuracy). The kernels launch, or the plain PyTorch versions run where
+``kernels.use_plain`` says so (CPU tensors; the backward's formula written
+out, not autograd); the Function's backward follows its forward.
 """
 
 from __future__ import annotations
@@ -173,22 +174,18 @@ def _mlp_kernel(params: Params, h: torch.Tensor, block_expert: Optional[torch.Te
     dims, rows_per_group = _check_mlp("mlp_blocks_fwd", params, h, block_expert)
     rows = _launch_rows(n, rows_per_group, h.device)
     out = torch.empty((n, dims[-1]), dtype=torch.float32, device=h.device)
-    code = kernels.lib().mlp_blocks_fwd(
-        h.data_ptr(), kernels.ptr(block_expert), n, rows_per_group, rows,
-        kernels.host_ptrs([w.data_ptr() for w, _ in params]),
-        kernels.host_ptrs([b.data_ptr() for _, b in params]),
-        (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid),
-        out.data_ptr(), kernels.stream())
-    kernels.check("mlp_blocks_fwd", code)
-    kernels.LAUNCHES["mlp_blocks_fwd"] += 1
+    kernels.launch("mlp_blocks_fwd", h.data_ptr(), kernels.ptr(block_expert), n,
+                   rows_per_group, rows, kernels.host_ptrs([w.data_ptr() for w, _ in params]),
+                   kernels.host_ptrs([b.data_ptr() for _, b in params]),
+                   (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid), out.data_ptr())
     return out
 
 
 def mlp_blocks_fwd(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
                    sigmoid: bool = False) -> torch.Tensor:
-    """Wrapper of K2 on stacked (E, in, out) weights: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    if h.device.type == "cpu":
+    """Wrapper of K2 on stacked (E, in, out) weights: the kernel, or the
+    plain version where ``kernels.use_plain``."""
+    if kernels.use_plain(h):
         return apply_mlp_blocks_plain(params, h, block_expert, sigmoid)
     return _mlp_kernel(params, h, block_expert, sigmoid)
 
@@ -238,7 +235,7 @@ def mlp_blocks_bwd_plain(params: Params, h: torch.Tensor,
 def mlp_blocks_bwd(params: Params, h: torch.Tensor, block_expert: Optional[torch.Tensor],
                    sigmoid: bool, grad: torch.Tensor):
     """Wrapper of K2b (see mlp_blocks_bwd_plain for the contract)."""
-    if h.device.type == "cpu":
+    if kernels.use_plain(h):
         return mlp_blocks_bwd_plain(params, h, block_expert, sigmoid, grad)
     n = h.shape[0]
     dims, rows_per_group = _check_mlp("mlp_blocks_bwd", params, h, block_expert, grad)
@@ -253,16 +250,14 @@ def mlp_blocks_bwd(params: Params, h: torch.Tensor, block_expert: Optional[torch
     partial = torch.empty((num_ctas, partial_size), dtype=torch.float32, device=h.device)
     # the reduction's index, filled on the device by the kernel's counting sort
     index = torch.empty((num_ctas + num_experts + 1,), dtype=torch.int32, device=h.device)
-    code = kernels.lib().mlp_blocks_bwd(
-        h.data_ptr(), kernels.ptr(block_expert), grad.data_ptr(), n, rows_per_group, rows,
-        num_experts, kernels.host_ptrs([w.data_ptr() for w, _ in params]),
-        kernels.host_ptrs([b.data_ptr() for _, b in params]),
-        (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid), dx.data_ptr(),
-        kernels.host_ptrs([dw.data_ptr() for dw, _ in grads]),
-        kernels.host_ptrs([db.data_ptr() for _, db in grads]), partial.data_ptr(),
-        index.data_ptr(), kernels.stream())
-    kernels.check("mlp_blocks_bwd", code)
-    kernels.LAUNCHES["mlp_blocks_bwd"] += 1
+    kernels.launch("mlp_blocks_bwd", h.data_ptr(), kernels.ptr(block_expert), grad.data_ptr(),
+                   n, rows_per_group, rows, num_experts,
+                   kernels.host_ptrs([w.data_ptr() for w, _ in params]),
+                   kernels.host_ptrs([b.data_ptr() for _, b in params]),
+                   (ctypes.c_int * len(dims))(*dims), len(params), int(sigmoid), dx.data_ptr(),
+                   kernels.host_ptrs([dw.data_ptr() for dw, _ in grads]),
+                   kernels.host_ptrs([db.data_ptr() for _, db in grads]), partial.data_ptr(),
+                   index.data_ptr())
     return dx, grads
 
 
@@ -279,7 +274,7 @@ class _MlpBlocks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, block_expert, sigmoid, *flat):
         params = list(zip(flat[0::2], flat[1::2]))
-        ctx.sigmoid = sigmoid
+        ctx.sigmoid, ctx.plain = sigmoid, kernels.use_plain(h)
         ctx.save_for_backward(h, block_expert, *flat)
         return mlp_blocks_fwd(params, h, block_expert, sigmoid)
 
@@ -287,7 +282,8 @@ class _MlpBlocks(torch.autograd.Function):
     def backward(ctx, grad):
         h, block_expert, *flat = ctx.saved_tensors
         params = list(zip(flat[0::2], flat[1::2]))
-        dx, grads = mlp_blocks_bwd(params, h, block_expert, ctx.sigmoid, grad.contiguous())
+        with kernels.plain_versions(ctx.plain):
+            dx, grads = mlp_blocks_bwd(params, h, block_expert, ctx.sigmoid, grad.contiguous())
         return (dx if ctx.needs_input_grad[0] else None, None, None,
                 *[t for pair in grads for t in pair])
 

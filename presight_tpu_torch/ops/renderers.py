@@ -7,10 +7,11 @@ median and expected depths and the weighted composite of a payload. Its
 forward is kernel K3 (csrc/volume_render.cu), its backward kernel K3b
 (csrc/volume_render_bwd.cu), which takes the gradients of the weights,
 accumulation, expected depth and composite to the densities and payload
-rows (the median depth is stop-gradient). On CUDA tensors the kernels
-launch, on CPU tensors the plain versions run: ``volume_render_plain``,
-built from the plain functions below, and ``volume_render_bwd_plain``, the
-backward's formula written out.
+rows (the median depth is stop-gradient). The kernels launch, or where
+``kernels.use_plain`` says so (CPU tensors) the plain versions run:
+``volume_render_plain``, built from the plain functions below, and
+``volume_render_bwd_plain``, the backward's formula written out; the
+Function's backward follows its forward.
 """
 
 from __future__ import annotations
@@ -100,7 +101,7 @@ def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
     device memory otherwise, and keeps the weights in the output where S
     weights and row indices do not fit either; the sums run in one order on
     every path."""
-    if deltas.device.type == "cpu":
+    if kernels.use_plain(deltas):
         return volume_render_plain(deltas, density, steps, payload, payload_index,
                                    threshold)
     if deltas.dim() != 2 or density.shape != deltas.shape:
@@ -137,14 +138,12 @@ def volume_render_fwd(deltas: torch.Tensor, density: torch.Tensor,
             out[key] = torch.empty((r,), dtype=torch.float32, device=device)
     if payload is not None:
         out["composite"] = torch.empty((r, c), dtype=torch.float32, device=device)
-    code = kernels.lib().volume_render_fwd(
-        deltas.data_ptr(), density.data_ptr(), kernels.ptr(steps), kernels.ptr(clip),
-        kernels.ptr(payload), kernels.ptr(payload_index), r, s, c, float(threshold),
-        out["weights"].data_ptr(), kernels.ptr(out.get("accumulation")),
-        kernels.ptr(out.get("depth")), kernels.ptr(out.get("expected_depth")),
-        kernels.ptr(out.get("composite")), kernels.stream())
-    kernels.check("volume_render_fwd", code)
-    kernels.LAUNCHES["volume_render_fwd"] += 1
+    kernels.launch("volume_render_fwd", deltas.data_ptr(), density.data_ptr(),
+                   kernels.ptr(steps), kernels.ptr(clip), kernels.ptr(payload),
+                   kernels.ptr(payload_index), r, s, c, float(threshold),
+                   out["weights"].data_ptr(), kernels.ptr(out.get("accumulation")),
+                   kernels.ptr(out.get("depth")), kernels.ptr(out.get("expected_depth")),
+                   kernels.ptr(out.get("composite")))
     return out
 
 
@@ -213,7 +212,7 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
     either keeps them in device memory, in a scratch buffer of R x S floats
     allocated here for such rays only. T_s and the expected depth's sums are
     K3's on every path."""
-    if deltas.device.type == "cpu":
+    if kernels.use_plain(deltas):
         return volume_render_bwd_plain(deltas, density, steps, payload, payload_index, weights,
                                        g_weights, g_acc, g_expected, g_composite)
     r, s = deltas.shape
@@ -236,18 +235,15 @@ def volume_render_bwd(deltas: torch.Tensor, density: torch.Tensor,
     kernels.require_cuda("volume_render_bwd", *tensors)
     d_density = torch.empty_like(density)
     d_payload = None if payload is None else torch.empty_like(payload)
-    lib = kernels.lib()
-    n_scratch = lib.volume_render_bwd_scratch_floats(r, s, c, payload is not None)
+    n_scratch = kernels.lib().volume_render_bwd_scratch_floats(r, s, c, payload is not None)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=deltas.device) if n_scratch \
         else None
-    code = lib.volume_render_bwd(
-        deltas.data_ptr(), density.data_ptr(), kernels.ptr(steps), kernels.ptr(clip),
-        kernels.ptr(payload), kernels.ptr(payload_index), weights.data_ptr(),
-        g_weights.data_ptr(), kernels.ptr(g_acc), kernels.ptr(g_expected),
-        kernels.ptr(g_composite), r, s, c, 0 if payload is None else payload.shape[0],
-        d_density.data_ptr(), kernels.ptr(d_payload), kernels.ptr(scratch), kernels.stream())
-    kernels.check("volume_render_bwd", code)
-    kernels.LAUNCHES["volume_render_bwd"] += 1
+    kernels.launch("volume_render_bwd", deltas.data_ptr(), density.data_ptr(),
+                   kernels.ptr(steps), kernels.ptr(clip), kernels.ptr(payload),
+                   kernels.ptr(payload_index), weights.data_ptr(), g_weights.data_ptr(),
+                   kernels.ptr(g_acc), kernels.ptr(g_expected), kernels.ptr(g_composite), r, s,
+                   c, 0 if payload is None else payload.shape[0], d_density.data_ptr(),
+                   kernels.ptr(d_payload), kernels.ptr(scratch))
     return d_density, d_payload
 
 
@@ -255,6 +251,7 @@ class _VolumeRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, deltas, density, steps, payload, payload_index, threshold):
         clip = step_bounds(steps)
+        ctx.plain = kernels.use_plain(deltas)
         out = volume_render_fwd(deltas, density, steps, payload, payload_index, threshold, clip)
         ctx.save_for_backward(deltas, density, steps, payload, payload_index, out["weights"],
                               clip)
@@ -266,11 +263,12 @@ class _VolumeRender(torch.autograd.Function):
     def backward(ctx, g_weights, g_acc, _g_depth, g_expected, g_composite):
         deltas, density, steps, payload, payload_index, weights, clip = ctx.saved_tensors
         with_steps, with_payload = steps is not None, payload is not None
-        d_density, d_payload = volume_render_bwd(
-            deltas, density, steps, payload, payload_index, weights, g_weights.contiguous(),
-            g_acc.contiguous() if with_steps else None,
-            g_expected.contiguous() if with_steps else None,
-            g_composite.contiguous() if with_payload else None, clip)
+        with kernels.plain_versions(ctx.plain):
+            d_density, d_payload = volume_render_bwd(
+                deltas, density, steps, payload, payload_index, weights, g_weights.contiguous(),
+                g_acc.contiguous() if with_steps else None,
+                g_expected.contiguous() if with_steps else None,
+                g_composite.contiguous() if with_payload else None, clip)
         return None, d_density, None, d_payload, None, None
 
 

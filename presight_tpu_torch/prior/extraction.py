@@ -153,7 +153,6 @@ def extract_frame_points(model: NerfactoNuscMS, cameras: CameraParams, camera_id
         return None
     with span("extract.colors"):
         kept = [torch.cat(rows) for rows in (points_list, feat_list, color_list)]
-        count("extract.points_kept", len(kept[0]))
         return (*_to_host(kept), hits)
 
 
@@ -167,12 +166,10 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
                    use_segmentation_mask: bool = True,
                    mask_seg_classes=DEFAULT_MASK_SEG_CLASSES,
                    density_threshold: float = 1.0,
-                   z_bounds=(-3.0, 6.0),
-                   accumulator: str = "native") -> Dict[str, np.ndarray]:
+                   z_bounds=(-3.0, 6.0)) -> Dict[str, np.ndarray]:
     """Full extraction. Each frame's points are thresholded and spilled to a
     temporary directory, then folded into the O(voxels) accumulator once
-    the grid origin (min of all points - 1) is known. ``accumulator``:
-    'native' (C++) or 'numpy' (its plain version; same bytes)."""
+    the grid origin (min of all points - 1) is known."""
     with span("extract.frame"):
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
@@ -239,8 +236,7 @@ def extract_voxels(model: NerfactoNuscMS, items, cameras: CameraParams,
             with span("extract.fold"):
                 min_bound = (pts_min - np.float32(1.0) if pts_min is not None
                              else np.zeros(3, np.float32))
-                accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim,
-                                                   accumulator=accumulator)
+                accum = make_streaming_accumulator(voxel_size, min_bound, feature_dim=feat_dim)
                 for fpath in spill_frames:
                     with np.load(fpath) as z:
                         accum.add(z["points"].astype(np.float64), z["colors"], z["features"])

@@ -22,6 +22,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import kernels
+
 
 def voxel_keys(points: np.ndarray, voxel_size: float, min_bound: np.ndarray) -> np.ndarray:
     """Open3D bucketing: int voxel coords -> flat int64 key."""
@@ -126,22 +128,17 @@ class StreamingVoxelAccumulator:
         return out
 
 
-ACCUMULATORS = ("native", "numpy")
-
-
 def make_streaming_accumulator(voxel_size: float, min_bound: np.ndarray,
-                               feature_dim: int = 0, with_colors: bool = True,
-                               accumulator: str = "native"):
+                               feature_dim: int = 0, with_colors: bool = True):
     """The port's native C++ accumulator (built with g++ at first use; a
-    failed build raises), or with ``accumulator="numpy"`` its plain numpy
-    version -- the same bytes either way (tests/test_torch_native.py)."""
-    if accumulator == "native":
-        from ..native import VoxelAccumulator
-
-        return VoxelAccumulator(voxel_size, min_bound, feature_dim, with_colors)
-    if accumulator == "numpy":
+    failed build raises), or its plain numpy version where
+    ``kernels.use_plain()`` -- the same bytes either way
+    (tests/test_torch_native.py)."""
+    if kernels.use_plain():
         return StreamingVoxelAccumulator(voxel_size, min_bound, feature_dim, with_colors)
-    raise ValueError(f"accumulator must be one of {ACCUMULATORS}, got {accumulator!r}")
+    from ..native import VoxelAccumulator
+
+    return VoxelAccumulator(voxel_size, min_bound, feature_dim, with_colors)
 
 
 def hit_quantile_filter(

@@ -136,15 +136,13 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def train_step(model, optimizer, ema, batch, grad_clip: float = 5.0, ema_decay: float = 0.9990,
-               plain: bool = False):
+def train_step(model, optimizer, ema, batch, grad_clip: float = 5.0, ema_decay: float = 0.9990):
     """One training step (train_occ.py:279-299 of the JAX package): the
     train-mode forward (``occ`` is the first output), ``occ_loss``, the
     backward (convolutions in IEEE f32, as the forward's), a zero gradient
     for a parameter the graph did not reach (as JAX's would be),
     global-norm clipping, AdamW, then the EMA. ``batch`` holds tensors on
-    the model's device; ``plain`` runs S1, S1b and S2's plain versions.
-    Returns (the loss as a device tensor, the EMA state)."""
+    the model's device. Returns (the loss as a device tensor, the EMA state)."""
     from ..occupancy import occ_loss
     from ..utils.ema import ema_update
     from ..utils.precision import ieee_convolutions
@@ -154,7 +152,7 @@ def train_step(model, optimizer, ema, batch, grad_clip: float = 5.0, ema_decay: 
         model.train()
         optimizer.zero_grad(set_to_none=True)
         priors = {k: batch[k] for k in _PRIOR_INPUTS if k in batch}
-        occ = model(*[batch[k] for k in _MODEL_INPUTS], **priors, plain=plain)[0]
+        occ = model(*[batch[k] for k in _MODEL_INPUTS], **priors)[0]
         loss = occ_loss(occ, batch["voxel_semantics"], batch.get("mask_camera"))
         with ieee_convolutions():
             loss.backward()

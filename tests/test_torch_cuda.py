@@ -945,10 +945,11 @@ def test_bev_pool_kernel_matches_plain(kind, B, N, D, H, W, C):
     args = [torch.from_numpy(a).cuda() for a in (depth, feat, coor)]
     got = PB.bev_pool_v2(*args, lb, iv, gs)
     again = PB.bev_pool_v2(*args, lb, iv, gs)
-    want = PB.bev_pool_v2(*args, lb, iv, gs, plain=True)
     ones = (torch.ones_like(args[0]), torch.ones_like(args[1][..., :1]), args[2])
     counts = PB.bev_pool_v2(*ones, lb, iv, gs)
-    counts_plain = PB.bev_pool_v2(*ones, lb, iv, gs, plain=True)
+    with kernels.plain_versions():
+        want = PB.bev_pool_v2(*args, lb, iv, gs)
+        counts_plain = PB.bev_pool_v2(*ones, lb, iv, gs)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert torch.equal(counts, counts_plain)
@@ -1024,8 +1025,9 @@ def test_bev_pool_autograd_on_the_card_runs_s1b():
     """bev_pool_v2 on CUDA tensors that require grad: a grad_fn, one S1 and
     one S1b launch, the incoming gradient a strided slice of torch.cat's
     backward (as the temporal branch gives it), gradients equal to the
-    plain path's (plain=True) within rtol 1e-5 + atol 1e-6 of the largest,
-    and none for coor."""
+    plain path's (the forward under ``kernels.plain_versions()``, the
+    backward after the scope: no S1b launch) within rtol 1e-5 + atol 1e-6
+    of the largest, and none for coor."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from presight_tpu_torch.occupancy import bev_pool as PB
@@ -1038,7 +1040,8 @@ def test_bev_pool_autograd_on_the_card_runs_s1b():
     for plain in (False, True):
         d, f, c = (torch.from_numpy(a).cuda().requires_grad_() for a in (depth, feat, coor))
         kernels.reset_launches()
-        out = PB.bev_pool_v2(d, f, c, S1_LB, S1_IV, S1_GRID, plain=plain)
+        with kernels.plain_versions(plain):
+            out = PB.bev_pool_v2(d, f, c, S1_LB, S1_IV, S1_GRID)
         assert out.grad_fn is not None
         (torch.cat([out, torch.zeros_like(out)], dim=1) * g).sum().backward()
         torch.cuda.synchronize()
@@ -1112,7 +1115,8 @@ def test_stereo_cost_volume_kernel_matches_plain(kind, BN, Hs, Ws, C, D):
     args = [torch.from_numpy(a).cuda() for a in (prev, curr, grid)]
     prob, cost, mask = stereo_cost_volume(*args, D, return_cost=True)
     prob2, cost2, mask2 = stereo_cost_volume(*args, D, return_cost=True)
-    want, want_cost, want_mask = stereo_cost_volume(*args, D, plain=True, return_cost=True)
+    with kernels.plain_versions():
+        want, want_cost, want_mask = stereo_cost_volume(*args, D, return_cost=True)
     torch.cuda.synchronize()
     assert torch.equal(prob, prob2) and torch.equal(cost, cost2) and torch.equal(mask, mask2)
     assert torch.equal(mask, want_mask) and 0 < int(mask.sum()) < mask.numel()
@@ -1194,7 +1198,8 @@ def test_msda_kernel_matches_plain(site, B, Q, Hh, shapes, T, hd, same_rows):
     with torch.no_grad():
         got = msda(value, levels, loc, attn)
         again = msda(value, levels, loc, attn)
-        want = msda(value, levels, loc, attn, plain=True)
+        with kernels.plain_versions():
+            want = msda(value, levels, loc, attn)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     scale = float(want.abs().max())
@@ -1221,7 +1226,8 @@ def test_deform_im2col_kernel_matches_plain(B, H, W, C):
     with torch.no_grad():
         got = deform_im2col(x, off, mask, 3)
         again = deform_im2col(x, off, mask, 3)
-        want = deform_im2col(x, off, mask, 3, plain=True)
+        with kernels.plain_versions():
+            want = deform_im2col(x, off, mask, 3)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(x.abs().max()))

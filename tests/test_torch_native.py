@@ -1,15 +1,17 @@
 """The port's native voxel accumulator (presight_tpu_torch.native, built with
 g++ into build/native/) against its plain numpy version
-(prior/voxelize.StreamingVoxelAccumulator): the same bytes, on the points of
-the synthetic fixture that test_torch_slice.py's extraction test uses, and
-the library is built outside the source tree, keyed on the source."""
+(prior/voxelize.StreamingVoxelAccumulator, which runs inside
+``kernels.plain_versions()``): the same bytes, on the points of the
+synthetic fixture that test_torch_slice.py's extraction test uses, and the
+library is built outside the source tree, keyed on the source."""
 
+import contextlib
 import pickle
 import re
 
 import numpy as np
 
-from presight_tpu_torch import native
+from presight_tpu_torch import kernels, native
 from presight_tpu_torch.prior.voxelize import StreamingVoxelAccumulator, make_streaming_accumulator
 
 
@@ -27,13 +29,15 @@ def test_native_accumulator_matches_numpy_bytes():
     feats = rng.rand(5000, 16).astype(np.float16)
     min_bound = points.min(axis=0) - 1.0
     outs = []
-    for accumulator in ("native", "numpy"):
-        acc = make_streaming_accumulator(0.4, min_bound, feature_dim=16, accumulator=accumulator)
+    for scope in (contextlib.nullcontext(), kernels.plain_versions()):
+        with scope:
+            acc = make_streaming_accumulator(0.4, min_bound, feature_dim=16)
         acc.add(points[:3000], colors[:3000], feats[:3000])
         acc.add(points[3000:], colors[3000:], feats[3000:])
         outs.append(acc.finalize())
-    assert isinstance(make_streaming_accumulator(0.4, min_bound, accumulator="numpy"),
-                      StreamingVoxelAccumulator)
+    assert isinstance(make_streaming_accumulator(0.4, min_bound), native.VoxelAccumulator)
+    with kernels.plain_versions():
+        assert isinstance(make_streaming_accumulator(0.4, min_bound), StreamingVoxelAccumulator)
     for key in outs[1]:
         assert outs[0][key].dtype == outs[1][key].dtype, key
         assert outs[0][key].tobytes() == outs[1][key].tobytes(), key
@@ -41,7 +45,8 @@ def test_native_accumulator_matches_numpy_bytes():
 
 def test_extraction_pickle_is_the_same_with_either_accumulator(tmp_path):
     """extract_voxels on the synthetic fixture of test_extraction_matches_jax,
-    once with each accumulator: the pickles are byte-identical."""
+    once with each accumulator (the numpy one inside
+    ``kernels.plain_versions()``): the pickles are byte-identical."""
     from presight_tpu.data.dataparser import DataParserConfig, make_camera_params, parse
     from presight_tpu.data.synthetic import generate_scene
     from presight_tpu_torch.data import cameras as TC
@@ -57,11 +62,13 @@ def test_extraction_pickle_is_the_same_with_either_accumulator(tmp_path):
     tcams = TC.CameraParams(**{k: _t(getattr(jcams, k))
                                for k in ("c2w", "fx", "fy", "cx", "cy", "video_ids")})
     blobs = []
-    for accumulator in ("native", "numpy"):
-        out = tmp_path / accumulator
-        extract_voxels(model, parsed.items, tcams, pose_scale_factor=parsed.pose_scale_factor,
-                       origin=parsed.pose_transformation, dino_to_rgb=parsed.dino_to_rgb,
-                       output_dir=out, density_threshold=0.0, accumulator=accumulator)
+    for name, scope in (("native", contextlib.nullcontext()),
+                        ("numpy", kernels.plain_versions())):
+        out = tmp_path / name
+        with scope:
+            extract_voxels(model, parsed.items, tcams, pose_scale_factor=parsed.pose_scale_factor,
+                           origin=parsed.pose_transformation, dino_to_rgb=parsed.dino_to_rgb,
+                           output_dir=out, density_threshold=0.0)
         blobs.append((out / "extracted_priors.pkl").read_bytes())
     assert len(pickle.loads(blobs[0])["points"]) > 0
     assert blobs[0] == blobs[1]

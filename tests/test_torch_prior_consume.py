@@ -22,7 +22,7 @@ import pytest
 
 from presight_tpu import native as jax_native
 from presight_tpu.prior import consume as JC
-from presight_tpu_torch import native
+from presight_tpu_torch import kernels, native
 from presight_tpu_torch.prior import consume as PC
 
 PC_RANGE = [-40.0, -40.0, -2.0, 40.0, 40.0, 6.0]
@@ -58,7 +58,8 @@ def test_first_come_voxelizer_cpp_numpy_and_jax_agree():
     pts[2000:2100, :3] = np.float32(PC_RANGE[:3]) + rng.randint(0, 200, (100, 3)) * np.float32(0.4)
     for max_points, max_voxels in ((35, 1500), (5, 20000)):
         got = native.points_to_voxel(pts, VOXEL, PC_RANGE, max_points, max_voxels)
-        plain = native.points_to_voxel(pts, VOXEL, PC_RANGE, max_points, max_voxels, plain=True)
+        with kernels.plain_versions():
+            plain = native.points_to_voxel(pts, VOXEL, PC_RANGE, max_points, max_voxels)
         want = jax_native.points_to_voxel(pts, VOXEL, PC_RANGE, max_points, max_voxels)
         for g, p, w in zip(got, plain, want):
             np.testing.assert_array_equal(g, w)

@@ -23,7 +23,7 @@ from presight_tpu.data import cameras as JC
 from presight_tpu.engine import evaluator as JE
 from presight_tpu.models import nerfacto_ms as JM
 from presight_tpu.ops.rays import RayBundle as JRayBundle
-from presight_tpu_torch import bridge, configs as TCfg
+from presight_tpu_torch import bridge, configs as TCfg, kernels
 from presight_tpu_torch.data import cameras as TC
 from presight_tpu_torch.engine.evaluator import ImageRenderer
 from presight_tpu_torch.models import nerfacto_ms as TM
@@ -228,8 +228,8 @@ def test_extraction_matches_jax(tmp_path):
                   hit_thr_ratio=0.2)
     jax_extract(params=params, config=jcfg, items=parsed.items, cameras=jcams,
                 output_dir=tmp_path / "jax", **common)
-    extract_voxels(model, parsed.items, tcams, output_dir=tmp_path / "port", accumulator="numpy",
-                   **common)
+    with kernels.plain_versions():
+        extract_voxels(model, parsed.items, tcams, output_dir=tmp_path / "port", **common)
     with open(tmp_path / "jax" / "extracted_priors.pkl", "rb") as f:
         ref = pickle.load(f)
     with open(tmp_path / "port" / "extracted_priors.pkl", "rb") as f:
