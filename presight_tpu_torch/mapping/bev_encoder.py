@@ -128,6 +128,10 @@ class FusedDeformableCore(nn.Module):
         self.attention_weights = Dense(D, num_heads * num_levels * num_points, device)
         for l in range(num_levels):
             self.add_module(f"value_proj_l{l}", Dense(D, D, device))
+        # level l's pixels per level-0 pixel, made here so a forward copies
+        # nothing from the host
+        self.register_buffer("level_scale", torch.tensor([2.0 ** -l for l in range(num_levels)],
+                                                         device=device), persistent=False)
         self.n_valid: Optional[torch.Tensor] = None
 
     def capacity(self, Q: int) -> int:
@@ -158,9 +162,7 @@ class FusedDeformableCore(nn.Module):
                              qsel[..., None].expand(-1, -1, A)).to(queries.dtype)  # (N, K, A)
         ref = torch.gather(ref_pix.permute(0, 2, 1, 3), 1,
                            qsel[..., None, None].expand(-1, -1, A, 2))  # (N, K, A, 2)
-        scale = torch.tensor([2.0 ** -l for l in range(L)], dtype=queries.dtype,
-                             device=queries.device)
-        loc = (ref[:, :, None, None, None] * scale[:, None, None, None]
+        loc = (ref[:, :, None, None, None] * self.level_scale[:, None, None, None]
                + offsets[qsel])  # (N, K, Hh, L, Pa, A, 2)
         w = attn[qsel] * valid[:, :, None, None, None, :] * slot_ok[:, :, None, None, None, None]
         with span("map.msda"):

@@ -33,7 +33,9 @@ def warp_bev(prev_bev: torch.Tensor, prev2curr: torch.Tensor,
     ys = (torch.arange(H, device=dev, dtype=dt) + 0.5) / H * rh - rh / 2
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     cur = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (H, W, 3)
-    prev_pts = torch.einsum("ij,hwj->hwi", torch.linalg.inv(prev2curr.to(dt)), cur)
+    # inv_ex: linalg.inv's factorisation without its host read of the error code
+    inv = torch.linalg.inv_ex(prev2curr.to(dt)).inverse
+    prev_pts = torch.einsum("ij,hwj->hwi", inv, cur)
     px = (prev_pts[..., 0] + rw / 2) / rw * W - 0.5
     py = (prev_pts[..., 1] + rh / 2) / rh * H - 0.5
     x0f, y0f = torch.floor(px), torch.floor(py)

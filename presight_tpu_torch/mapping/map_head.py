@@ -141,7 +141,7 @@ class MapDetectorHead(nn.Module):
         H, W = bev_hw
         D = embed_dim
         self.bev_hw, self.num_queries, self.num_points = tuple(bev_hw), num_queries, num_points
-        self.num_layers, self.roi_size = num_layers, tuple(roi_size)
+        self.num_layers = num_layers
         self.bev_proj = Dense(D, D, device)
         self.bev_pos = nn.Parameter(torch.empty((H, W, D), device=device))
         self.queries = nn.Parameter(torch.empty((num_queries, D), device=device))
@@ -154,6 +154,12 @@ class MapDetectorHead(nn.Module):
         self.query_update = MotionMLP(D, device)
         for lid in range(num_layers):
             self.add_module(f"dec{lid}", DecoderLayer(D, num_heads, num_points, device))
+        # the ROI's size and its lower corner in ego metres, made here so a
+        # forward copies nothing from the host
+        rw, rh = roi_size
+        self.register_buffer("roi", torch.tensor([rw, rh], device=device), persistent=False)
+        self.register_buffer("origin", torch.tensor([-rw / 2, -rh / 2], device=device),
+                             persistent=False)
 
     def cls_head(self, x, lid: int):
         return getattr(self, f"cls_head{lid}")(x)
@@ -177,14 +183,11 @@ class MapDetectorHead(nn.Module):
         if prev_queries is not None and prev2curr is not None:
             pose_encoding = prev2curr[:3].reshape(-1).to(torch.float32)
             prop_q = prev_queries + self.query_update(prev_queries, pose_encoding)
-            rw, rh = self.roi_size
-            roi = torch.tensor([rw, rh], dtype=torch.float32, device=bev.device)
-            origin = torch.tensor([-rw / 2, -rh / 2], dtype=torch.float32, device=bev.device)
-            den = prev_ref_pts * roi + origin  # (k, P, 2) ego metres
+            den = prev_ref_pts * self.roi + self.origin  # (k, P, 2) ego metres
             den4 = torch.cat([den, torch.zeros_like(den[..., :1]), torch.ones_like(den[..., :1])],
                              -1)
             cur = torch.einsum("lk,ijk->ijl", prev2curr.double(), den4.double()).float()
-            prop_ref = clip((cur[..., :2] - origin) / roi, 0.0, 1.0)
+            prop_ref = clip((cur[..., :2] - self.origin) / self.roi, 0.0, 1.0)
 
         keep = None
         for lid in range(self.num_layers):
@@ -196,9 +199,8 @@ class MapDetectorHead(nn.Module):
             q = getattr(self, f"dec{lid}")(q, bev_rows, (H, W), ref, self.query_pos)
             ref = torch.sigmoid(self.reg_branch(q, lid).reshape(Q, P, 2))
 
-        rw, rh = self.roi_size
         out = {"scores": self.cls_head(q, self.num_layers - 1),
-               "lines": (ref - 0.5) * torch.tensor([rw, rh], device=bev.device),
+               "lines": (ref - 0.5) * self.roi,
                "queries": q, "ref_pts": ref}
         if keep is not None:
             out["keep"] = keep  # the current queries kept at PROP_ADD_STAGE, in order

@@ -17,7 +17,11 @@ counts after the hand-off, per encoder layer, ``map.sca_pairs`` (valid
 (camera, query) pairs), ``map.sca_slots`` (cameras x capacity: the pairs
 S3 computes) and ``map.sca_overflow`` (valid queries dropped past the
 capacity), reading the per-camera counts from the card once a frame, when
-its work is queued; outside one it reads nothing from the card.
+its work is queued. Outside one a forward neither reads from the card nor
+copies to it from pageable host memory: no call in it waits for the card,
+so the host queues the whole frame while the card still runs the image
+encoder (tests/test_torch_map_model.py and, on the card,
+tests/test_torch_cuda.py hold it to that).
 """
 
 from __future__ import annotations

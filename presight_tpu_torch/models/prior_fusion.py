@@ -22,14 +22,16 @@ def formulate_voxels(prior_feats: torch.Tensor, coords: torch.Tensor, valid: tor
     features at (V, 3) int (z, y, x) coords into an (rx, ry, rz, C) grid,
     indexed [z, y, x] -- the reference's quirk, kept bit for bit: a voxel
     survives only where z < rx, y < ry and x < rz. Padded rows (valid
-    False) are dropped."""
+    False) are dropped: every row is copied, a dropped one into a spare row
+    past the grid that is sliced off, so the scatter's size does not depend
+    on the data and nothing is read back to the host."""
     rx, ry, rz = voxel_resolution
-    C = prior_feats.shape[-1]
+    N, C = rx * ry * rz, prior_feats.shape[-1]
     i0, i1, i2 = coords.long().unbind(-1)
     keep = valid & (i0 >= 0) & (i0 < rx) & (i1 >= 0) & (i1 < ry) & (i2 >= 0) & (i2 < rz)
-    grid = torch.zeros((rx * ry * rz, C), dtype=prior_feats.dtype, device=prior_feats.device)
-    grid[((i0 * ry + i1) * rz + i2)[keep]] = prior_feats[keep]
-    return grid.reshape(rx, ry, rz, C)
+    rows = torch.where(keep, (i0 * ry + i1) * rz + i2, N)
+    grid = prior_feats.new_zeros((N + 1, C)).index_copy_(0, rows, prior_feats)
+    return grid[:N].reshape(rx, ry, rz, C)
 
 
 class VoxelFeatureExtractor(nn.Module):

@@ -32,14 +32,22 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     return _TruncExp.apply(x)
 
 
+def _bound(x: torch.Tensor, b: Union[float, torch.Tensor]) -> torch.Tensor:
+    """A bound as a tensor of x's dtype on x's device; a number is filled
+    in there, not copied from the host."""
+    if isinstance(b, torch.Tensor):
+        return b.to(dtype=x.dtype, device=x.device)
+    return x.new_full((), b)
+
+
 def clip(x: torch.Tensor, lo: Bound = None, hi: Bound = None) -> torch.Tensor:
     """jnp.clip as JAX differentiates it: min(max(x, lo), hi), so at a tie
     with a bound half the gradient goes to x (torch.clamp passes all of
     it). Use it wherever a clipped value carries a gradient."""
     if lo is not None:
-        x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device))
+        x = torch.maximum(x, _bound(x, lo))
     if hi is not None:
-        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+        x = torch.minimum(x, _bound(x, hi))
     return x
 
 

@@ -1250,3 +1250,84 @@ def test_s3_kernels_refuse_a_gradient():
         deform_im2col(x, off, torch.rand(1, 4, 5, 9, device="cuda"), 3)
     with torch.no_grad():
         assert msda(value, [(4, 5, 0)], loc, attn).shape == (1, 3, 64)
+
+
+def _toy_map_stream(frames=3, seed=0):
+    """smn-toy with a prior range (a 24 x 12 x 8 grid of 2.5 x 2.5 x 1 m
+    voxels) on the card, its weights drawn from the seed (norms' variances
+    1), six cameras round the ego car, the ego motion between two frames,
+    and ``frames`` frames of images and 300 prior voxels (a third padding,
+    some outside the grid), all on the card."""
+    import dataclasses
+    import math
+
+    from presight_tpu_torch.configs.stage3_configs import map_configs
+    from presight_tpu_torch.mapping import StreamMapNet
+
+    cfg = dataclasses.replace(map_configs["smn-toy"](),
+                              prior_pc_range=(-30.0, -15.0, -3.0, 30.0, 15.0, 5.0),
+                              prior_voxel_size=(2.5, 2.5, 1.0))
+    gen = torch.Generator().manual_seed(seed)
+    model = StreamMapNet(cfg)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            t.copy_(torch.ones_like(t) if name.endswith("running_var")
+                    else torch.randn(t.shape, generator=gen) * 0.1)
+    H, W = cfg.img_size
+    K = torch.tensor([[W / 2, 0.0, W / 2], [0.0, W / 2, H / 2], [0.0, 0.0, 1.0]])
+    lidar2img = torch.zeros(6, 4, 4)
+    for i in range(6):
+        yaw = i * math.pi / 3
+        c, s = math.cos(yaw), math.sin(yaw)
+        # ego (x forward, y left, z up) -> camera (x right, y down, z along the view)
+        ego2cam = torch.tensor([[s, -c, 0.0], [0.0, 0.0, -1.0], [c, s, 0.0]])
+        lidar2img[i, :3, :3] = K @ ego2cam
+        lidar2img[i, :3, 3] = K @ torch.tensor([0.0, 1.5, 0.0])
+        lidar2img[i, 3, 3] = 1.0
+    yaw = math.radians(2.0)
+    prev2curr = torch.tensor([[math.cos(yaw), -math.sin(yaw), -1.0],
+                              [math.sin(yaw), math.cos(yaw), -0.05], [0.0, 0.0, 1.0]])
+    inputs = []
+    for _ in range(frames):
+        coords = torch.stack([torch.randint(-1, 9, (300,), generator=gen),
+                              torch.randint(0, 13, (300,), generator=gen),
+                              torch.randint(0, 25, (300,), generator=gen)], -1).to(torch.int32)
+        valid = torch.rand(300, generator=gen) > 0.33
+        inputs.append({"imgs": torch.randn(6, 3, H, W, generator=gen),
+                       "prior_feats": torch.randn(300, 68, generator=gen),
+                       "prior_coords": coords, "prior_valid": valid})
+    cuda = [{k: v.cuda() for k, v in f.items()} for f in inputs]
+    return model.cuda().eval(), cuda, lidar2img.cuda(), prev2curr.cuda()
+
+
+def test_streamed_mapped_frame_queues_without_a_host_synchronisation():
+    """smn-toy with priors through two warm frames (the kernels' build,
+    cuDNN's timing of each shape), then a streamed frame with history and
+    priors under ``set_sync_debug_mode("error")``: no operation of the
+    forward synchronises the host with the card. The mode is restored
+    after."""
+    _need_cuda()
+    model, frames, lidar2img, prev2curr = _toy_map_stream()
+
+    def serve(frame, last):
+        history = {} if last is None else dict(
+            prev_bev=last["bev"], prev2curr=prev2curr, prev_queries=last["prop_queries"],
+            prev_ref_pts=last["prop_ref_pts"])
+        return model(frame["imgs"], lidar2img, prior_feats=frame["prior_feats"],
+                     prior_coords=frame["prior_coords"], prior_valid=frame["prior_valid"],
+                     **history)
+
+    with torch.no_grad():
+        first = serve(frames[0], None)
+        last = serve(frames[1], first)
+        torch.cuda.synchronize()
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = serve(frames[2], last)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert "keep" in out and "keep" not in first
+    assert all(torch.isfinite(out[k]).all() for k in ("scores", "lines", "bev"))

@@ -157,6 +157,45 @@ def test_stepfun_pieces_match_jax():
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=atol, err_msg=name)
 
 
+def _clip_with_tensor_bounds(x, lo, hi):
+    """ops.math.clip with each number bound made a tensor from the host."""
+    if lo is not None:
+        x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype))
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (1e-7, 1.0 - 1e-7), (None, 0.5), (0.25, None)])
+def test_clip_with_number_bounds_matches_jnp_clip(lo, hi, dtype):
+    """clip with Python-number bounds, filled on x's device: the values and
+    the gradient of bounds made tensors from the host, bit for bit, and in
+    float32 jnp.clip's under jax.grad: at a tie with a bound half the
+    gradient passes."""
+    from presight_tpu_torch.ops.math import clip
+
+    rng = np.random.RandomState(7)
+    ties = [b for b in (lo, hi) if b is not None]
+    x = np.concatenate([rng.rand(40) * 1.6 - 0.3, np.repeat(ties, 3)]).astype(
+        torch.empty((), dtype=dtype).numpy().dtype)
+    w = rng.randn(len(x)).astype(x.dtype)
+    out = []
+    for fn in (clip, _clip_with_tensor_bounds):
+        t = torch.from_numpy(x).requires_grad_(True)
+        y = fn(t, lo, hi)
+        (y * torch.from_numpy(w)).sum().backward()
+        out.append((y.detach(), t.grad))
+    (got, got_grad), (want, want_grad) = out
+    assert got.dtype == dtype and torch.equal(got, want) and torch.equal(got_grad, want_grad)
+    tie = np.isin(x, np.asarray(ties, x.dtype))
+    np.testing.assert_array_equal(got_grad.numpy()[tie], w[tie] / 2)
+    if dtype == torch.float32:
+        ref = jax.grad(lambda a: jnp.sum(jnp.clip(a, lo, hi) * w))(jnp.asarray(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.clip(jnp.asarray(x), lo, hi)))
+        np.testing.assert_array_equal(got_grad.numpy(), np.asarray(ref))
+
+
 def test_segment_sum_plain_matches_jax():
     """K5's plain version (sorted_accum_plain) against jax.ops.segment_sum
     over sorted keys, accumulating into a non-zero table."""

@@ -16,6 +16,12 @@ camera over every query under masks; over the encoder, the ConvGRU, the
 prior fusion and the decoder's layers the float32 roundings grow to ~1e-6
 of an output's largest value.
 
+A streamed forward, outside a profiler session, dispatches none of the
+ATen ops that read from the card on the host (a tensor made from host data,
+linalg's error check, nonzero, a scalar read, indexing by a boolean mask),
+so on the card the host queues a whole frame without waiting for it
+(tests/test_torch_cuda.py holds the card itself to it).
+
 Also: the published configuration's widths and parameter count, and the
 raster configuration refused.
 """
@@ -28,6 +34,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 BENCH = Path(__file__).resolve().parent.parent / "portbench"
 for p in (str(BENCH / "tests"), str(BENCH)):
@@ -43,6 +50,7 @@ from traffic import map as TM  # noqa: E402
 
 from presight_tpu_torch.configs.stage3_configs import map_configs  # noqa: E402
 from presight_tpu_torch.mapping import StreamMapNet, StreamMapNetConfig  # noqa: E402
+from presight_tpu_torch.utils.profiler import profiling  # noqa: E402
 
 PUBLISHED = "smn_wcamprior_480_100x50_24e_randomdrop"
 COMPARED = ("scores", "lines", "bev", "queries", "ref_pts", "prop_queries", "prop_ref_pts")
@@ -64,8 +72,18 @@ def toy_config():
     return {"name": "smn-toy", "model": model}
 
 
+def toy_prior_config():
+    """smn-toy with a prior range over its 60 x 30 m ROI: a 24 x 12 x 8 grid
+    of 2.5 x 2.5 x 1 m voxels, 300 prior voxels a frame."""
+    config = toy_config()
+    config["model"].update(prior_pc_range=[-30.0, -15.0, -3.0, 30.0, 15.0, 5.0],
+                           prior_voxel_size=[2.5, 2.5, 1.0], prior_max_voxels=300)
+    return config
+
+
 def preset(name: str):
-    return smn()[1] if name == "published-ratios" else toy_config()
+    return {"published-ratios": lambda: smn()[1], "smn-toy": toy_config,
+            "smn-toy-priors": toy_prior_config}[name]()
 
 
 def build(config, seed=SEED):
@@ -147,3 +165,45 @@ def test_published_config_builds_the_published_model():
 def test_raster_config_is_refused():
     with pytest.raises(NotImplementedError, match=r"4\(d\)"):
         map_configs["nusc_raster_wcamprior_480_100x50_24e_randomdrop"]()
+
+
+class HostReads(TorchDispatchMode):
+    """Records each dispatched ATen op that, on tensors on the card, waits
+    for the card: ``torch.tensor`` / ``as_tensor`` of host data
+    (``lift_fresh``, then a copy from pageable memory), linalg's error check,
+    ``nonzero``, a scalar read, and indexing by a boolean mask (a nonzero
+    inside)."""
+
+    OPS = ("aten.lift_fresh", "aten._linalg_check_errors", "aten.nonzero",
+           "aten._local_scalar_dense")
+    INDEXING = ("aten.index.Tensor", "aten.index_put_.default", "aten.index_put.default")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name.startswith(self.OPS) or (name in self.INDEXING and any(
+                i is not None and i.dtype == torch.bool for i in args[1])):
+            self.seen.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", ["smn-toy-priors", "published-ratios"])
+def test_streamed_forward_reads_nothing_back_from_the_device(name):
+    """Two frames, then a third with history (warp, ConvGRU, propagated
+    queries) and priors under the op recorder: none of the ops that wait
+    for the card is dispatched."""
+    config = preset(name)
+    port, _, rig = build(config)
+    last = stream(port, config, rig)[-1]
+    inputs = frame_inputs(config, 2)
+    carried = dict(prev_bev=last["bev"], prev2curr=rig["prev2curr"],
+                   prev_queries=last["prop_queries"], prev_ref_pts=last["prop_ref_pts"])
+    assert not profiling()
+    with torch.no_grad(), HostReads() as reads:
+        out = port(inputs.pop("imgs"), rig["lidar2img"], **inputs, **carried)
+    assert "keep" in out and port.cfg.prior_pc_range is not None
+    assert reads.seen == []
+

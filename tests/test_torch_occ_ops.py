@@ -203,6 +203,84 @@ def test_formulate_voxels_matches_jax_quirk_included():
     assert 0 < int((np.abs(got).sum(-1) > 0).sum()) == int(kept.sum())
 
 
+def _masked_formulate_voxels(prior_feats, coords, valid, voxel_resolution):
+    """formulate_voxels as boolean masks write it: the kept rows picked out
+    (a data-dependent count, read back to the host on a card) and put into
+    the grid."""
+    rx, ry, rz = voxel_resolution
+    i0, i1, i2 = coords.long().unbind(-1)
+    keep = valid & (i0 >= 0) & (i0 < rx) & (i1 >= 0) & (i1 < ry) & (i2 >= 0) & (i2 < rz)
+    grid = torch.zeros((rx * ry * rz, prior_feats.shape[-1]), dtype=prior_feats.dtype)
+    grid[((i0 * ry + i1) * rz + i2)[keep]] = prior_feats[keep]
+    return grid.reshape(rx, ry, rz, prior_feats.shape[-1])
+
+
+def _voxel_case(case, V=240, C=5, res=(12, 10, 6), seed=11):
+    """Distinct (z, y, x) coords of a 6 x 10 x 12 grid into res = (rx, ry,
+    rz), with what ``case`` adds: padded rows, negative coordinates,
+    coordinates past one bound or past all three, or no valid row."""
+    rng = np.random.RandomState(seed)
+    rx, ry, rz = res
+    cells = rng.permutation(6 * 10 * 12)[:V]
+    coords = np.stack([cells // 120, (cells // 12) % 10, cells % 12], -1).astype(np.int32)
+    valid = np.ones(V, bool)
+    if case == "padded":
+        valid[rng.rand(V) < 0.3] = False
+        coords[~valid] = 0  # padding as the prior contract writes it: zero coordinates
+    elif case == "negative":
+        coords[::4, rng.randint(0, 3)] *= -1
+        coords[1::9] = -1
+    elif case in ("past rx", "past ry", "past rz"):
+        axis = ("past rx", "past ry", "past rz").index(case)
+        bound = res[axis]
+        coords[::3, axis] = bound + rng.randint(0, 3, len(coords[::3]))
+    elif case == "past every bound":
+        for axis in range(3):
+            rows = slice(2 * axis, None, 6)
+            coords[rows, axis] = res[axis] + rng.randint(0, 3, len(coords[rows]))
+    elif case == "all invalid":
+        valid[:] = False
+    feats = rng.randn(V, C).astype(np.float32)
+    return feats, coords, valid, res
+
+
+VOXEL_CASES = ["padded", "negative", "past rx", "past ry", "past rz", "past every bound",
+               "all invalid"]
+
+
+@pytest.mark.parametrize("case", VOXEL_CASES)
+def test_formulate_voxels_equals_the_masked_scatter(case):
+    """The scatter that sends a dropped row to a spare row past the grid
+    gives the masked scatter's grid and its gradient, bit for bit: a kept
+    row takes its cell's gradient, a dropped one none."""
+    feats, coords, valid, res = _voxel_case(case)
+    g = torch.from_numpy(np.random.RandomState(3).randn(*res, feats.shape[1]).astype(np.float32))
+    out = []
+    for fn in (formulate_voxels, _masked_formulate_voxels):
+        x = T(feats).clone().requires_grad_(True)
+        grid = fn(x, T(coords), T(valid), res)
+        (grid * g).sum().backward()
+        out.append((grid.detach(), x.grad))
+    (got, got_grad), (want, want_grad) = out
+    assert torch.equal(got, want) and torch.equal(got_grad, want_grad)
+    kept = (got_grad.abs().sum(-1) > 0).numpy()
+    if case == "all invalid":
+        assert not got.any() and not kept.any()
+    else:
+        assert 0 < kept.sum() < len(kept)
+
+
+@pytest.mark.parametrize("case", ["past every bound", "all invalid"])
+def test_formulate_voxels_matches_jax_past_the_grid(case):
+    """JAX's dump slot crops coordinates at a bound and drops those past it,
+    as the port drops both; with no valid row both grids are zero."""
+    feats, coords, valid, res = _voxel_case(case)
+    want = np.asarray(jax.jit(jax_formulate_voxels, static_argnums=(3,))(
+        feats, coords, valid, res))
+    got = formulate_voxels(T(feats), T(coords), T(valid), res).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def _flax_conv_pair(kernel, stride, padding, size, channels=(3, 5), seed=0):
     rng = np.random.RandomState(seed)
     x = rng.randn(2, *size, channels[0]).astype(np.float32)
